@@ -1,0 +1,332 @@
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line; any failure exits non-zero):
+ 1. environment: torch / CUDA versions, card name, power limit;
+ 2. build: both hand-written kernels from video_segment_tpu_torch/csrc
+    (nvcc, sm_90a) and the native host helpers (g++);
+ 3. K1 tile_felzenszwalb vs its plain PyTorch version on the card;
+ 4. K2 tile_reduce_min vs its plain PyTorch version on the card;
+ 5. the main path: segment_frames(use_flow=False, device="cuda") over a
+    seeded 60-frame 272x480 synthetic clip (bench config 2's geometry),
+    with launch counts proving both kernels ran;
+ 6. the dense stage on the card vs the same port on the CPU (boundary F).
+Then a JSON line of per-kernel results, the card's name and power limit
+from nvidia-smi, and the final {"ok": true, ...} line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H, W = 272, 480
+N_FRAMES = 60
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds of fn() on the card (CUDA events, after warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def textured(rng, shape, sigma):
+    import scipy.ndimage as ndi
+    vol = rng.random(shape + (3,)).astype(np.float32)
+    return ndi.gaussian_filter(vol, (0, sigma, sigma, 0)).astype(np.float32)
+
+
+def synthetic_clip(n: int, seed: int = 0) -> list[np.ndarray]:
+    """Moving piecewise-smooth textured shapes over a panning textured
+    background, plus sensor noise: BGR uint8 (H, W) frames."""
+    import scipy.ndimage as ndi
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    pan = 2 * n
+    tex = ndi.gaussian_filter(rng.normal(0, 1, (H, W + pan, 3)),
+                              (2.5, 2.5, 0))
+    tex = (20 * tex / tex.std()).astype(np.float32)
+    grad = np.stack([50 + 80 * xx / W, 70 + 60 * yy / H,
+                     150 - 60 * xx / W], -1)
+    shapes = []
+    for _ in range(12):
+        shapes.append(dict(
+            cy=rng.uniform(30, H - 30), cx=rng.uniform(30, W - 30),
+            ry=rng.uniform(12, 50), rx=rng.uniform(15, 80),
+            vy=rng.uniform(-1.5, 1.5), vx=rng.uniform(-3, 3),
+            col=rng.uniform(20, 235, 3), grad=rng.uniform(-40, 40, 3),
+            tex=rng.uniform(0.0, 0.6)))
+    frames = []
+    for f in range(n):
+        bg_tex = tex[:, 2 * f:2 * f + W]
+        img = grad + bg_tex
+        for s in shapes:
+            cy, cx = s["cy"] + s["vy"] * f, s["cx"] + s["vx"] * f
+            d = ((yy - cy) / s["ry"]) ** 2 + ((xx - cx) / s["rx"]) ** 2
+            m = d < 1
+            img[m] = (s["col"] + s["grad"] * d[m, None]
+                      + s["tex"] * bg_tex[::-1][m])
+        img += rng.normal(0, 3, img.shape)
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def expected_chunk_solves(n_frames: int, chunk_size: int) -> int:
+    """Chunk solves of the dense streaming protocol (2 overlap frames,
+    one constraint frame) for n_frames, flush included."""
+    buf, start, solves = 0, 0, 0
+    for _ in range(n_frames):
+        buf += 1
+        if buf - start >= chunk_size:
+            solves += 1
+            buf, start = 2, 1
+    return solves + (buf > 0)
+
+
+def boundary_f(a: np.ndarray, b: np.ndarray, tol: int = 2) -> float:
+    """Boundary F-measure of two (T,H,W) label stacks (boundary pixels
+    match within a (2*tol+1)^2 window)."""
+    def bmap(x):
+        x = torch.as_tensor(x)
+        m = torch.zeros(x.shape, dtype=torch.bool)
+        m[:, :, :-1] |= x[:, :, 1:] != x[:, :, :-1]
+        m[:, :-1, :] |= x[:, 1:, :] != x[:, :-1, :]
+        return m
+
+    def dilate(m):
+        return torch.nn.functional.max_pool2d(
+            m[:, None].float(), 2 * tol + 1, 1, tol)[:, 0] > 0
+
+    ba, bb = bmap(a), bmap(b)
+    prec = float((ba & dilate(bb)).sum()) / max(float(ba.sum()), 1.0)
+    rec = float((bb & dilate(ba)).sum()) / max(float(bb.sum()), 1.0)
+    return 2 * prec * rec / max(prec + rec, 1e-12)
+
+
+def rasterize(frames_out) -> np.ndarray:
+    from video_segment_tpu_torch.core.region import rasterize_ids
+    return np.stack([rasterize_ids(
+        sf.region_ids, sf.interval_counts,
+        np.stack([sf.ys, sf.lxs, sf.rxs], axis=1), sf.frame_height,
+        sf.frame_width) for sf in frames_out])
+
+
+def main() -> int:
+    # -- 1. environment ---------------------------------------------------
+    if not torch.cuda.is_available():
+        log("env", "FAIL: torch.cuda.is_available() is False; this smoke "
+            "run needs an NVIDIA card")
+        return 1
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    log("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {kind!r} count "
+        f"{torch.cuda.device_count()} nvidia-smi {smi!r}")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from video_segment_tpu_torch import _build
+    from video_segment_tpu_torch.ops import tile_extract as te
+    from video_segment_tpu_torch.ops import tile_felz as tf
+
+    # -- 2. build -----------------------------------------------------------
+    t0 = time.monotonic()
+    for name in ("tile_felz", "tile_extract"):
+        _build.load(name)
+        regs = [ln.strip() for ln in _build.build_info[name]["log"]
+                .splitlines() if "registers" in ln or "spill" in ln]
+        log("build", f"{name}: {_build.build_info[name]['seconds']:.2f}s "
+            f"{' | '.join(regs)}")
+    from video_segment_tpu_torch.core import region
+    t1 = time.monotonic()
+    if not region.native.available():
+        raise RuntimeError("native host helpers (g++) failed to build")
+    log("build", f"kernels {t1 - t0:.2f}s, native host helpers "
+        f"{time.monotonic() - t1:.2f}s")
+
+    # -- 3. K1 vs plain -----------------------------------------------------
+    from video_segment_tpu_torch.core import oversegmentation as ov
+    p = ov.OversegParams()
+    k1_kw = dict(schedule=p.preseg_schedule,
+                 rounds_per_level=p.preseg_rounds_per_level,
+                 merge_threshold=p.merge_threshold, metric=p.metric,
+                 fin_margin=p.preseg_fin_margin, fin_eager=p.preseg_fin_eager,
+                 fin_gated=p.preseg_fin_gated, pair_merge=p.preseg_pair_merge)
+    rng = np.random.default_rng(7)
+    k1_err = 0.0
+    labels8 = None
+    for shape, sigma in (((8, H, W), 1.5), ((2, 24, 300), 2.0)):
+        vol = torch.from_numpy(textured(rng, shape, sigma)).to(dev)
+        lab_k, fin_k, st_k = tf.tile_felzenszwalb(vol, **k1_kw)
+        lab_p, fin_p, st_p = tf.tile_felzenszwalb_plain(vol, **k1_kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(lab_k, lab_p) and torch.equal(fin_k, fin_p)
+                and torch.equal(st_k[0], st_p[0])):
+            raise AssertionError(f"K1 labels/fin/size differ at {shape}")
+        for a, b in zip(st_k[1:], st_p[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+            k1_err = max(k1_err, float((a - b).abs().max()))
+        if labels8 is None:
+            labels8 = lab_k
+        log("k1", f"{shape}: labels, fin, size equal; colour sums max abs "
+            f"err {k1_err:.3g}; {int(torch.unique(lab_k).numel())} regions")
+    frame1 = torch.from_numpy(textured(rng, (1, H, W), 1.5)).to(dev)
+    k1_ms = cuda_ms(lambda: tf.tile_felzenszwalb(frame1, **k1_kw), 50)
+    k1_plain_ms = cuda_ms(lambda: tf.tile_felzenszwalb_plain(frame1, **k1_kw),
+                          5)
+    log("k1", f"one {H}x{W} frame: kernel {k1_ms:.4f} ms, plain "
+        f"{k1_plain_ms:.4f} ms")
+
+    # -- 4. K2 vs plain -----------------------------------------------------
+    t_solve = 21
+    lab21 = torch.cat([labels8] * 3)[:t_solve]
+    yx = lab21 % (H * W)
+    labr = ((yx // W) % tf.TILE_H).to(torch.int32).contiguous()
+    labc = (yx % W % tf.TILE_W).to(torch.int32).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    keys = torch.randint(0, 2046 << 20, (13, t_solve, H, W), generator=gen,
+                         dtype=torch.int32, device=dev)
+    keys[torch.rand(keys.shape, generator=gen, device=dev) < 0.3] = \
+        ov.I32MAX
+    red_k = te.tile_reduce_min(labr, labc, keys)
+    red_p = te.tile_reduce_min_plain(labr, labc, keys)
+    torch.cuda.synchronize()
+    if not torch.equal(red_k, red_p):
+        raise AssertionError("K2 differs from its plain version")
+    k2_err = float((red_k.long() - red_p.long()).abs().max())
+    k2_ms = cuda_ms(lambda: te.tile_reduce_min(labr, labc, keys), 50)
+    k2_plain_ms = cuda_ms(lambda: te.tile_reduce_min_plain(labr, labc, keys),
+                          5)
+    log("k2", f"(13,{t_solve},{H},{W}) equal; kernel {k2_ms:.4f} ms, plain "
+        f"{k2_plain_ms:.4f} ms")
+    del keys, red_k, red_p
+
+    # -- 5. main path -------------------------------------------------------
+    from video_segment_tpu_torch import api
+    frames = synthetic_clip(N_FRAMES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tf.tile_felzenszwalb.launches = 0
+    te.tile_reduce_min.launches = 0
+    t0 = time.monotonic()
+    stream = api.segment_frames(iter(frames), W, H, use_flow=False,
+                                device="cuda")
+    out = list(stream)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    k1_launches = tf.tile_felzenszwalb.launches
+    k2_launches = te.tile_reduce_min.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    n_solves = expected_chunk_solves(N_FRAMES, 20)
+    if [sf.frame_index for sf in out] != list(range(N_FRAMES)):
+        raise AssertionError("frames missing or out of order")
+    img = rasterize(out)
+    if (img < 0).any():
+        raise AssertionError("unlabelled pixels in the output")
+    for sf in out:
+        if not np.all(np.diff(sf.region_ids) > 0):
+            raise AssertionError(f"region ids not ascending, frame "
+                                 f"{sf.frame_index}")
+    sets = [sf for sf in out if sf.hierarchy is not None]
+    if not sets:
+        raise AssertionError("no hierarchy emitted")
+    for sf in sets:
+        hier = sf.hierarchy
+        if len(hier) < 2:
+            raise AssertionError(f"set at frame {sf.frame_index}: "
+                                 f"{len(hier)} hierarchy levels")
+        for lo, hi in zip(hier, hier[1:]):
+            if lo.parent_ids is None or not np.isin(lo.parent_ids,
+                                                    hi.ids).all():
+                raise AssertionError("parent links point outside the next "
+                                     "level")
+        if not np.isin(sf.region_ids, hier[0].ids).all():
+            raise AssertionError("frame regions missing from level 0")
+    if len(stream.solve_diag) != n_solves:
+        raise AssertionError(f"{len(stream.solve_diag)} chunk solves, "
+                             f"protocol says {n_solves}")
+    if k1_launches != N_FRAMES or k2_launches != n_solves:
+        raise AssertionError(f"launches K1 {k1_launches} (want {N_FRAMES}),"
+                             f" K2 {k2_launches} (want {n_solves})")
+    stages = {k: round(v, 3) for k, v in stream.stage_seconds.items()}
+    rounds = [int(d[:, 1].sum()) for d in stream.solve_diag]
+    log("main", f"{N_FRAMES} frames {W}x{H} in {wall:.2f}s = "
+        f"{N_FRAMES / wall:.3f} fps; stage seconds {stages}; chunk solves "
+        f"{len(stream.solve_diag)} (merge rounds {rounds}); peak device "
+        f"memory {peak / 2**20:.1f} MiB; regions per level "
+        f"{[[len(lv.ids) for lv in sf.hierarchy] for sf in sets]}; "
+        f"launches K1 {k1_launches} K2 {k2_launches}")
+
+    # -- 6. card vs CPU -----------------------------------------------------
+    from video_segment_tpu_torch.core import dense
+    level0 = {}
+    for name in ("cuda", "cpu"):
+        ds = dense.DenseSegmentation(api.DenseSegmentationOptions(), W, H,
+                                     device=name)
+        res = []
+        for fr in frames[:8]:
+            res += ds.process_frame(False, fr)
+        res += ds.process_frame(True)
+        level0[name] = rasterize(res)
+    fm = boundary_f(level0["cuda"], level0["cpu"])
+    n_reg = {k: int(len(np.unique(v))) for k, v in level0.items()}
+    log("cpu", f"8 frames, one flush chunk (t_solve 21): boundary F "
+        f"{fm:.4f} (regions {n_reg})")
+    if fm < 0.9:
+        raise AssertionError(f"card vs CPU boundary F {fm:.4f} < 0.9")
+
+    jax_mods = sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith(("jax.", "jaxlib")))
+    if jax_mods:
+        raise AssertionError(f"the port imported JAX: {jax_mods[:5]}")
+
+    kernels = [
+        dict(name="tile_felzenszwalb", route="cuda",
+             source="video_segment_tpu_torch/csrc/tile_felz.cu",
+             replaces="video_segment_tpu/ops/tile_felz.py:474",
+             launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
+             plain_ms=k1_plain_ms),
+        dict(name="tile_reduce_min", route="cuda",
+             source="video_segment_tpu_torch/csrc/tile_extract.cu",
+             replaces="video_segment_tpu/ops/tile_extract.py:102",
+             launches=k2_launches, max_abs_err=k2_err, ms=k2_ms,
+             plain_ms=k2_plain_ms),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

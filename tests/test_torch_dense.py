@@ -1,0 +1,167 @@
+"""Port dense stage against the JAX DenseSegmentation (felz preseg).
+
+A seeded 10-frame 24x256 clip streams through both dense stages with
+chunk_size=4; every SegFrame's RLE and the level-0 hierarchies must be
+exact.  The clip is fed unsmoothed (presmoothing="none"): XLA's CPU
+backend contracts the filters' multiply-adds into FMAs, so smoothed frames
+differ from the port's in the last ulp; the filters are compared
+separately below, to 1 ulp-scale tolerance.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from video_segment_tpu.core import dense as jdense
+from video_segment_tpu.core.options import DenseSegmentationOptions
+from video_segment_tpu.ops import cc as jcc
+from video_segment_tpu.ops import filters as jfilters
+from video_segment_tpu_torch.core import dense as tdense
+from video_segment_tpu_torch.ops import cc as tcc
+from video_segment_tpu_torch.ops import filters as tfilters
+
+torch.set_num_threads(2)
+
+H, W, N_FRAMES = 24, 256, 10
+
+
+def clip(n=N_FRAMES, h=H, w=W, seed=3):
+    """Moving piecewise-smooth shapes plus noise, BGR uint8."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([40 + 60 * xx / w, 90 + 40 * yy / h,
+                     160 - 50 * xx / w], -1)
+    frames = []
+    for f in range(n):
+        img = base.copy()
+        cx = 40 + 9 * f
+        img[(xx - cx) ** 2 + 4 * (yy - h / 2) ** 2 < 120] = (200, 60, 50)
+        img[4:12, 150 + 3 * f:190 + 3 * f] = (30, 180, 90)
+        img[:, 220:] = (120, 120, 230)
+        img += rng.normal(0, 4, img.shape)
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def options():
+    return DenseSegmentationOptions(chunk_size=4, presmoothing="none",
+                                    frac_min_region_size=0.05,
+                                    preseg_mode="felz")
+
+
+def run(ds, frames, flush=True):
+    out = []
+    for fr in frames:
+        out += ds.process_frame(False, fr)
+    if flush:
+        out += ds.process_frame(True)
+    return out
+
+
+def assert_frames_equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.frame_index == b.frame_index
+        assert (a.chunk_id, a.chunk_size, a.hierarchy_frame_idx) == \
+            (b.chunk_id, b.chunk_size, b.hierarchy_frame_idx)
+        for f in ("region_ids", "interval_counts", "ys", "lxs", "rxs"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f"frame {a.frame_index} {f}")
+        assert (a.hierarchy is None) == (b.hierarchy is None)
+        if a.hierarchy is not None:
+            ha, hb = a.hierarchy[0], b.hierarchy[0]
+            for f in ("ids", "sizes", "start_frames", "end_frames",
+                      "neighbor_pairs"):
+                np.testing.assert_array_equal(getattr(ha, f), getattr(hb, f),
+                                              err_msg=f"hierarchy {f}")
+
+
+def test_dense_matches_jax():
+    frames = clip()
+    want = run(jdense.DenseSegmentation(options(), W, H), frames)
+    ds = tdense.DenseSegmentation(options(), W, H, device="cpu")
+    got = run(ds, frames)
+    assert_frames_equal(got, want)
+    assert sorted(sf.frame_index for sf in got) == list(range(N_FRAMES))
+    assert max(len(sf.region_ids) for sf in got) > 3
+    assert set(ds.stage_seconds) == {"ingest_preseg", "chunk_solve",
+                                     "host_tail"}
+
+
+def test_load_state_hands_over_jax_chunk_one():
+    """JAX's streaming state after chunk 1 -> the port: the port's chunk 2
+    (the constrained solve) equals JAX's."""
+    frames = clip()
+    jds = jdense.DenseSegmentation(options(), W, H)
+    first = run(jds, frames[:4], flush=False)
+    assert first and jds._overlap_gids          # chunk 1 emitted
+    state = dict(overlap_gids=jds._overlap_gids,
+                 max_region_id=jds._max_region_id,
+                 chunk_start=jds._chunk_start, chunk_id=jds._chunk_id,
+                 num_output_frames=jds._num_output_frames,
+                 buffer=[np.asarray(b) for b in jds._buffer])
+    tds = tdense.DenseSegmentation(options(), W, H, device="cpu")
+    tds.load_state(state)
+    want = run(jds, frames[4:7], flush=False)
+    got = run(tds, frames[4:7], flush=False)
+    assert want, "chunk 2 must have been solved"
+    assert_frames_equal(got, want)
+
+
+def test_async_tail_matches_sync():
+    frames = clip(n=9)
+    sync = run(tdense.DenseSegmentation(options(), W, H, device="cpu"),
+               frames)
+    opts = options()
+    opts.async_tail = True
+    asyn = run(tdense.DenseSegmentation(opts, W, H, device="cpu"), frames)
+    assert_frames_equal(asyn, sync)
+
+
+@pytest.mark.parametrize("mode", ["gaussian", "bilateral"])
+def test_presmooth_matches_jax(mode):
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (H, 64, 3)).astype(np.float32) / 255
+    want = np.asarray(jfilters.presmooth(jnp.asarray(img), mode))
+    got = tfilters.presmooth(torch.from_numpy(img), mode).numpy()
+    # FMA contraction / exp implementation: a few float32 ulps.
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_finalize_labels_matches_rle_n4():
+    from video_segment_tpu.ops import rle
+    rng = np.random.default_rng(2)
+    lab = rng.integers(0, 3, (2, 8, 11)).astype(np.int32)
+    got = tdense._finalize_labels(torch.from_numpy(lab), True).numpy()
+    for f in range(2):
+        np.testing.assert_array_equal(got[f],
+                                      rle.enforce_n4_connectivity(lab[f]))
+
+
+def test_pointer_jump_and_cycles_match_jax():
+    rng = np.random.default_rng(4)
+    n = 500
+    parent = np.arange(n, dtype=np.int32)
+    hook = rng.random(n) < 0.6
+    parent[hook] = rng.integers(0, n, hook.sum())
+    parent = np.minimum(parent, np.arange(n))          # acyclic forest
+    mutual = np.arange(n, dtype=np.int32)
+    mutual[0], mutual[1] = 1, 0
+    for p in (parent, mutual):
+        np.testing.assert_array_equal(
+            tcc.hook_and_resolve(torch.from_numpy(p)).numpy(),
+            np.asarray(jcc.hook_and_resolve(jnp.asarray(p))))
+
+
+def test_scope_raises():
+    with pytest.raises(NotImplementedError):
+        tdense.DenseSegmentation(
+            DenseSegmentationOptions(preseg_mode="flood"), W, H,
+            device="cpu")
+    with pytest.raises(NotImplementedError):
+        tdense.DenseSegmentation(DenseSegmentationOptions(), 1920, 1080,
+                                 device="cpu")
+    ds = tdense.DenseSegmentation(options(), W, H, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ds.process_frame(False, clip(1)[0], np.zeros((H, W, 2), np.float32))

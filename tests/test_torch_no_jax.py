@@ -1,0 +1,63 @@
+"""The port runs with jax, cv2 and protobuf unimportable.
+
+A subprocess blocks the three (`sys.modules[name] = None` makes their
+import raise), imports the port and runs a tiny flow-off
+`segment_frames(..., device="cpu")` end to end.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import sys
+    BLOCKED = ("jax", "jaxlib", "cv2", "google.protobuf")
+    for name in BLOCKED:
+        sys.modules[name] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    from video_segment_tpu.core.options import (DenseSegmentationOptions,
+                                                RegionSegmentationOptions)
+    from video_segment_tpu_torch.api import segment_frames
+
+    rng = np.random.default_rng(0)
+    frames = []
+    for f in range(7):
+        img = np.full((16, 128, 3), 60, np.uint8)
+        img[4:12, 10 + 4 * f:40 + 4 * f] = (200, 90, 40)
+        img[:, 90:] = (30, 160, 220)
+        frames.append((img + rng.integers(0, 6, img.shape)).astype(np.uint8))
+    out = list(segment_frames(
+        iter(frames), 128, 16, use_flow=False, device="cpu",
+        dense_options=DenseSegmentationOptions(chunk_size=3,
+                                               frac_min_region_size=0.1),
+        region_options=RegionSegmentationOptions(
+            chunk_set_size=2, chunk_set_overlap=1, min_region_num=2,
+            max_region_num=40, use_flow=False)))
+    assert [sf.frame_index for sf in out] == list(range(7)), out
+    assert any(sf.hierarchy for sf in out)
+    for sf in out:
+        assert sf.interval_counts.sum() > 0
+    loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                    and any(m == b or m.startswith(b + ".")
+                            for b in BLOCKED))
+    assert not loaded, loaded
+    print("ok", len(out))
+""")
+
+
+def test_port_runs_without_jax_cv2_protobuf():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("VST_JAX_CACHE", None)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok 7")

@@ -1,0 +1,151 @@
+"""Port edge-table solver against the JAX `oversegment`.
+
+Inputs are made with numpy from a seed: a textured volume, its tile felz
+pre-segmentation (the NumPy mirror, which the port's K1 equals exactly),
+and -- for the constrained case -- host-built head planes as the dense
+stage builds them.  JAX runs its proven-equal scatter extraction
+(extract_tile=False); the port runs both the scatter form and the tile
+(K2) form.  label, constr, size and orig must be exact.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from video_segment_tpu.core import oversegmentation as jov
+from video_segment_tpu.ops import tile_felz as jtf
+from video_segment_tpu_torch.core import oversegmentation as tov
+
+torch.set_num_threads(2)
+
+T, H, W = 5, 24, 256
+
+
+def _volume(seed, shape=(T, H, W)):
+    rng = np.random.default_rng(seed)
+    import scipy.ndimage as ndi
+    vol = ndi.gaussian_filter(rng.random(shape + (3,)), (0, 3, 3, 0))
+    vol = (vol - vol.min()) / (vol.max() - vol.min())
+    vol[:, :, 100:160] = 0.8 * vol[:, :, 100:160] + 0.1
+    return vol.astype(np.float32)
+
+
+def _identity_inputs(seed):
+    """Per-pixel seeds over a table large enough for one recompaction
+    (caps 49153 -> 32769)."""
+    shape = (3, 32, 512)
+    vol = _volume(seed, shape)
+    n = int(np.prod(shape))
+    init = np.arange(n, dtype=np.int32).reshape(shape)
+    fin = np.full(shape, jov.NUM_BUCKETS, np.int32)
+    params = jov.OversegParams(table_slots=n, min_region_size=20)
+    return vol, init, fin, params, {}
+
+
+def _inputs(seed, constrained):
+    vol = _volume(seed)
+    pj = jov.OversegParams()
+    lab, fin, stats = jtf.tile_felz_reference(
+        vol, schedule=pj.preseg_schedule, fin_margin=pj.preseg_fin_margin,
+        fin_eager=True, fin_gated=True)
+    init = lab.astype(np.int32)
+    fin = fin.astype(np.int32)
+    kw = dict(cell_stats=tuple(s.astype(np.float32) for s in stats))
+    if constrained:
+        n_c = 2
+        plane = np.arange(H * W)
+        left = (plane % W) < W // 2
+        constr = np.full((T, H, W), -1, np.int32)
+        constr[0] = np.where(left, 0, 1).reshape(H, W)
+        constr[1] = np.where((plane % W) < W // 3, 0,
+                             np.where(left, 1, 2)).reshape(H, W)
+        init[0] = np.where(left, 0, W // 2).reshape(H, W)
+        key = (init[1].astype(np.int64).ravel() * 4
+               + constr[1].ravel() + 1)
+        uniq, first = np.unique(key, return_index=True)
+        init[1] = (H * W + first[np.searchsorted(uniq, key)]).reshape(H, W)
+        fin[:n_c] = jov.NUM_BUCKETS
+        frozen = np.zeros((T, H, W), bool)
+        frozen[0] = True
+        kw.update(constraints=constr, frozen=frozen, head_planes=n_c)
+    flat = init.reshape(-1)
+    n_seeds = int((flat == np.arange(flat.size)).sum())
+    slots = min(((n_seeds + 1024 + 16383) // 16384) * 16384, flat.size)
+    params = pj._replace(table_divisor=16, table_slots=slots,
+                         min_region_size=20)
+    return vol, init, fin, params, kw
+
+
+def _run_jax(vol, init, fin, params, kw):
+    args = {k: (tuple(jnp.asarray(x) for x in v) if k == "cell_stats"
+                else (jnp.asarray(v) if isinstance(v, np.ndarray) else v))
+            for k, v in kw.items()}
+    return jov.oversegment(jnp.asarray(vol), init_label=jnp.asarray(init),
+                           fin=jnp.asarray(fin),
+                           params=params._replace(extract_tile=False),
+                           **args)
+
+
+def _run_port(vol, init, fin, params, kw, extract_tile):
+    args = {k: (tuple(torch.from_numpy(x) for x in v) if k == "cell_stats"
+                else (torch.from_numpy(v) if isinstance(v, np.ndarray)
+                      else v))
+            for k, v in kw.items()}
+    p = tov.params_from_jax(params)._replace(extract_tile=extract_tile)
+    return tov.oversegment(torch.from_numpy(vol),
+                           init_label=torch.from_numpy(init),
+                           fin=torch.from_numpy(fin), params=p, **args)
+
+
+@pytest.mark.parametrize("case", ["free", "head_planes", "identity"])
+def test_oversegment_matches_jax(case):
+    vol, init, fin, params, kw = (_identity_inputs(12) if case == "identity"
+                                  else _inputs(11, case == "head_planes"))
+    want = _run_jax(vol, init, fin, params, kw)
+    for extract_tile in (False, True):
+        got = _run_port(vol, init, fin, params, kw, extract_tile)
+        for field in ("label", "constr", "size", "orig"):
+            np.testing.assert_array_equal(
+                getattr(got, field).numpy(),
+                np.asarray(getattr(want, field)),
+                err_msg=f"{field} (extract_tile={extract_tile})")
+        nreg = len(np.unique(got.label.numpy()))
+        assert 2 < nreg < init.size // 20, nreg
+
+
+@pytest.mark.parametrize("knob", [dict(pair_merge=True),
+                                  dict(pair_merge_minsize=True),
+                                  dict(fin_every_round=True),
+                                  dict(min_size_interleave=2)],
+                         ids=["pair_merge", "pair_merge_minsize",
+                              "fin_every_round", "min_size_interleave"])
+def test_oversegment_knobs_match_jax(knob):
+    """Off-default solver knobs that the ported round loop carries."""
+    vol, init, fin, params, kw = _inputs(11, True)
+    params = params._replace(**knob)
+    want = _run_jax(vol, init, fin, params, kw)
+    got = _run_port(vol, init, fin, params, kw, None)
+    for field in ("label", "constr", "size", "orig"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
+
+
+def test_scope_raises():
+    vol = torch.zeros((2, 8, 128, 3))
+    for p in (tov.OversegParams(bands=2), tov.OversegParams(st_levels=1),
+              tov.OversegParams(two_stage=True),
+              tov.OversegParams(gradient_trait=True),
+              tov.OversegParams(descriptor="color_mean_variance"),
+              tov.OversegParams(edge_table=False)):
+        with pytest.raises(NotImplementedError):
+            tov.oversegment(vol, params=p)
+    with pytest.raises(NotImplementedError):
+        tov.oversegment(vol, flow=torch.zeros((1, 8, 128, 2)))
+
+
+def test_table_phase_caps_match():
+    for n in (16385, 65537, 200001, 1 << 20):
+        assert tov._table_phase_caps(n) == jov._table_phase_caps(n)
+        assert tov._pack_spec(n) == jov._pack_spec(n)

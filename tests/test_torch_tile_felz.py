@@ -1,0 +1,115 @@
+"""Port K1 (tile_felzenszwalb) against the JAX kernel and its NumPy mirror.
+
+The plain PyTorch version runs here on the CPU; it must equal the mirror
+`tile_felz_reference` and the JAX Pallas kernel (interpret mode) exactly
+in labels and finalize levels, and match the cell-positioned stats to
+1e-5 relative (the mirror and the JAX kernel sum colours in float32, the
+port in float64).  The CUDA kernel is held to the plain version on a card.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from video_segment_tpu.ops import tile_felz as jtf
+from video_segment_tpu_torch.ops import tile_felz as ttf
+
+torch.set_num_threads(2)
+
+# Dense-stage arguments (core/dense.py:_preseg_frame with default params).
+DENSE_KW = dict(schedule=(4, 32, 96), rounds_per_level=2,
+                merge_threshold=0.05, metric="l2", fin_margin=1.0,
+                fin_eager=True, fin_gated=True)
+
+
+@pytest.fixture(scope="module")
+def textured_vol():
+    rng = np.random.default_rng(7)
+    base = rng.random((2, 24, 300, 3)).astype(np.float32)
+    import scipy.ndimage as ndi
+    return ndi.gaussian_filter(base, (0, 2, 2, 0)).astype(np.float32)
+
+
+def _check_stats(st_a, st_b, vol):
+    for a, b in zip(st_a, st_b):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+    t, h, w, _ = vol.shape
+    assert float(np.asarray(st_a[0]).sum()) == t * h * w
+
+
+def test_plain_matches_mirror_and_jax_dense_args(textured_vol):
+    vol = textured_vol
+    lab_p, fin_p, st_p = ttf.tile_felzenszwalb(torch.from_numpy(vol),
+                                               **DENSE_KW)
+    lab_m, fin_m, st_m = jtf.tile_felz_reference(vol, **DENSE_KW)
+    lab_j, fin_j, _ = jtf.tile_felzenszwalb(jnp.asarray(vol), **DENSE_KW)
+    np.testing.assert_array_equal(lab_p.numpy(), lab_m)
+    np.testing.assert_array_equal(fin_p.numpy(), fin_m)
+    np.testing.assert_array_equal(lab_p.numpy(), np.asarray(lab_j))
+    np.testing.assert_array_equal(fin_p.numpy(), np.asarray(fin_j))
+    _check_stats(st_p, st_m, vol)
+    # Labels are self-rooted: a pointer jump is a no-op.
+    flat = lab_p.reshape(-1).long()
+    assert torch.equal(flat[flat], flat)
+
+
+VARIANTS = {
+    "margin": dict(schedule=(4, 32, 96), fin_margin=1.5),
+    "eager": dict(schedule=(4, 32, 96), fin_eager=True),
+    "gated": dict(schedule=(4, 32, 96), fin_gated=True),
+    "pair_tuple": dict(schedule=(4, 32, 96), fin_eager=True, fin_gated=True,
+                       pair_merge=True, rounds_per_level=(8, 4, 2)),
+    "l1": dict(schedule=(4, 32, 96), metric="l1", fin_eager=True,
+               fin_gated=True),
+}
+
+
+@pytest.mark.parametrize("kw", list(VARIANTS.values()), ids=list(VARIANTS))
+def test_plain_matches_mirror_variants(textured_vol, kw):
+    vol = textured_vol[:1]
+    lab_p, fin_p, st_p = ttf.tile_felzenszwalb(torch.from_numpy(vol), **kw)
+    lab_m, fin_m, st_m = jtf.tile_felz_reference(vol, **kw)
+    np.testing.assert_array_equal(lab_p.numpy(), lab_m)
+    np.testing.assert_array_equal(fin_p.numpy(), fin_m)
+    _check_stats(st_p, st_m, vol)
+
+
+def test_margined_fixture_fin_level():
+    """A | b1 | b2 flat strips: b1+b2 merge, A|B fails at bucket 94."""
+    h, w = 8, 128
+    vol = np.full((1, h, w, 3), 0.100, np.float32)
+    vol[:, :, 64:96] = 0.146
+    vol[:, :, 96:] = 0.1558
+    kw = dict(schedule=(4, 32, 96), rounds_per_level=8, fin_margin=1.0)
+    lab_p, fin_p, _ = ttf.tile_felzenszwalb(torch.from_numpy(vol), **kw)
+    assert len(np.unique(lab_p.numpy())) == 2
+    np.testing.assert_array_equal(
+        fin_p.numpy()[0], np.full((h, w), int(abs(0.146 - 0.100) * 2048)))
+
+
+def test_wrapper_validates_inputs():
+    with pytest.raises(ValueError):
+        ttf.tile_felzenszwalb(torch.zeros((2, 8, 8)))
+    with pytest.raises(TypeError):
+        ttf.tile_felzenszwalb(torch.zeros((1, 8, 8, 3), dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [DENSE_KW, *VARIANTS.values()],
+                         ids=["dense", *VARIANTS])
+def test_kernel_matches_plain_on_card(textured_vol, kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernel has no CPU mode)")
+    vol = torch.from_numpy(textured_vol).cuda()
+    before = ttf.tile_felzenszwalb.launches
+    lab_k, fin_k, st_k = ttf.tile_felzenszwalb(vol, **kw)
+    assert ttf.tile_felzenszwalb.launches == before + 1
+    lab_p, fin_p, st_p = ttf.tile_felzenszwalb_plain(vol, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(lab_k, lab_p)
+    assert torch.equal(fin_k, fin_p)
+    assert torch.equal(st_k[0], st_p[0])
+    for a, b in zip(st_k[1:], st_p[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)

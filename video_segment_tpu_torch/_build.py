@@ -1,0 +1,74 @@
+"""Lazy nvcc build of the hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` compiles at first use into a shared library with a
+plain C interface (loaded with ctypes), cached under `_build/` by a hash of
+the source and the flags.  Only the sources in this package are compiled.
+A missing nvcc or a failed build raises with the compiler output; nothing
+falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+# Never --use_fast_math: bucket indices are int(d * 2048) of an f32
+# distance, so a contracted FMA or an approximate sqrt/divide moves a bucket
+# across an integer boundary.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build seconds (0.0 when cached), "log": ptxas output}
+build_info: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels of "
+                       "video_segment_tpu_torch are built from csrc/ at "
+                       "first use")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`."""
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        src = os.path.join(CSRC, f"{name}.cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(
+                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+        t0 = time.monotonic()
+        log = ""
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src}:\n{' '.join(cmd)}"
+                                   f"\n{log}")
+            os.replace(tmp, so)
+        build_info[name] = {"seconds": time.monotonic() - t0, "log": log}
+        lib = ctypes.CDLL(so)
+        _libs[name] = lib
+        return lib

@@ -1,0 +1,137 @@
+"""High-level user API of the PyTorch port.
+
+    from video_segment_tpu_torch.api import segment_frames, segment_video
+
+    for sf in segment_frames(frame_iter, w, h, use_flow=False):  # on CUDA
+        ...
+    segment_video("clip.mp4", "clip.pb", use_flow=False)
+
+Same signatures as video_segment_tpu.api plus `device` (default "cuda";
+a machine without CUDA raises instead of falling back).  Optical flow is
+not ported yet: `use_flow=True` raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from video_segment_tpu.core.options import (DenseSegmentationOptions,
+                                            RegionSegmentationOptions)
+from video_segment_tpu_torch.core import dense as dense_mod
+
+_NO_FLOW = ("optical flow is not ported yet (ROADMAP.md, Queue 1 item 9: "
+            "core/flow.py and the flow-displaced solver directions); pass "
+            "use_flow=False")
+
+
+def segment_frames(frames: Iterable[np.ndarray], frame_width: int,
+                   frame_height: int, *,
+                   use_flow: bool = True,
+                   over_segment_only: bool = False,
+                   dense_options: DenseSegmentationOptions | None = None,
+                   region_options: RegionSegmentationOptions | None = None,
+                   device: str | torch.device = "cuda",
+                   ) -> "SegmentStream":
+    """Stream BGR uint8 frames through the full segmentation pipeline on
+    `device`, yielding SegFrame results (RLE regions + hierarchy on set
+    starts).  The stage objects are built (and the arguments checked)
+    before the first frame is consumed."""
+    if use_flow:
+        raise NotImplementedError(_NO_FLOW)
+    dense = dense_mod.DenseSegmentation(
+        dense_options or DenseSegmentationOptions(), frame_width,
+        frame_height, device=device)
+    region = None
+    if not over_segment_only:
+        from video_segment_tpu_torch.core import region as region_mod
+        region = region_mod.RegionSegmentation(
+            region_options or RegionSegmentationOptions(use_flow=False),
+            frame_width, frame_height, device=device)
+    return SegmentStream(frames, dense, region)
+
+
+class SegmentStream:
+    """Iterator over the SegFrames of one `segment_frames` call, with the
+    pipeline's counters: `stage_seconds` (ingest+preseg, chunk solve, host
+    tail, region) and `solve_diag` (per chunk solve, per schedule level:
+    [table cap, merge rounds, live regions])."""
+
+    def __init__(self, frames, dense, region):
+        self.dense = dense
+        self.region = region
+        self._gen = self._run(frames)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._gen)
+
+    @property
+    def stage_seconds(self) -> dict:
+        out = dict(self.dense.stage_seconds)
+        if self.region is not None:
+            out.update(self.region.stage_seconds)
+        return out
+
+    @property
+    def solve_diag(self) -> list:
+        return self.dense.solve_diag
+
+    def _run(self, frames):
+        dense, region = self.dense, self.region
+        for idx, frame in enumerate(frames):
+            if region is not None:
+                region.add_frame(idx, frame)
+            out = dense.process_frame(False, frame)
+            if region is not None:
+                out = region.process_frames(False, out)
+            yield from out
+        out = dense.process_frame(True)
+        if region is not None:
+            out = region.process_frames(True, out)
+        yield from out
+
+
+def segment_video(input_path: str, output_path: str | None = None, *,
+                  use_flow: bool = True, over_segment_only: bool = False,
+                  trim_to: int = 0, downscale_min_size: int = 0,
+                  vectorize: bool = False,
+                  dense_options: DenseSegmentationOptions | None = None,
+                  region_options: RegionSegmentationOptions | None = None,
+                  device: str | torch.device = "cuda") -> str:
+    """Segment a video file end to end; writes and returns the .pb path.
+    Decoding and the .pb writer are the JAX package's host modules (cv2,
+    protobuf)."""
+    if use_flow:
+        raise NotImplementedError(_NO_FLOW)
+    from video_segment_tpu.dataio import emit, seg_io, video
+
+    reader = video.VideoReader(
+        input_path, downscale="to_min" if downscale_min_size else "none",
+        downscale_size=downscale_min_size, trim_to=trim_to)
+    out_path = output_path or (input_path + ".pb")
+    writer = seg_io.SegmentationWriter(out_path)
+    if not writer.open_file(header_flags=[1 if vectorize else 0, 1]):
+        raise IOError(f"cannot open {out_path}")
+    try:
+        n = 0
+        for sf in segment_frames(reader, reader.info.width,
+                                 reader.info.height, use_flow=False,
+                                 over_segment_only=over_segment_only,
+                                 dense_options=dense_options,
+                                 region_options=region_options,
+                                 device=device):
+            if sf.hierarchy is not None and n > 0:
+                writer.write_chunk()
+            writer.add_to_chunk(emit.segframe_to_bytes(sf,
+                                                       vectorize=vectorize),
+                                pts=reader.pts_of(sf.frame_index))
+            n += 1
+        writer.write_term_and_close()
+    finally:
+        reader.close()
+    return out_path

@@ -1,0 +1,506 @@
+"""Streaming chunked dense over-segmentation stage (PyTorch port).
+
+Port of video_segment_tpu/core/dense.py: buffers preprocessed frames,
+runs the tile felz pre-solve (K1) per frame at ingest, solves each chunk
+with the edge-table solver, assigns globally consistent region ids across
+chunks and emits per-frame RLE results plus a level-0 hierarchy per chunk
+(chunk streaming protocol: see the JAX module docstring).
+
+Scope: one device, unbanded solves, felz pre-segmentation ("auto" means
+"felz" on every device, so CPU runs execute the algorithm the card runs),
+no optical flow.  Banded chunking, the mesh solve and the "flood"
+pre-segmentation (K4) raise NotImplementedError.  The host tail (N4 fix
+result, compaction, connectedness, id assignment, RLE) reuses the JAX-free
+host modules of video_segment_tpu.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from video_segment_tpu.core.options import DenseSegmentationOptions
+from video_segment_tpu.ops import rle
+from video_segment_tpu_torch import device as devmod
+from video_segment_tpu_torch.core import oversegmentation as ov
+from video_segment_tpu_torch.ops import filters, tile_felz
+
+
+@dataclasses.dataclass
+class HierarchyLevelData:
+    """One hierarchy level, arrays indexed per region (global ids)."""
+    ids: np.ndarray           # (R,) int64, ascending
+    sizes: np.ndarray         # (R,) int64 (window-adjusted voxel counts)
+    start_frames: np.ndarray  # (R,) global video frame index
+    end_frames: np.ndarray
+    neighbor_pairs: np.ndarray  # (P,2) int64 global-id pairs, a<b
+    parent_ids: np.ndarray | None = None   # (R,) or None (top level)
+    child_pairs: np.ndarray | None = None  # (C,2) (parent_gid, child_gid)
+
+
+@dataclasses.dataclass
+class SegFrame:
+    """Per-frame segmentation result (host representation of
+    SegmentationDesc)."""
+    frame_width: int
+    frame_height: int
+    region_ids: np.ndarray        # (R,) ascending global ids in this frame
+    interval_counts: np.ndarray   # (R,)
+    ys: np.ndarray
+    lxs: np.ndarray
+    rxs: np.ndarray
+    chunk_size: int = 0
+    overlap_start: int = 0
+    chunk_id: int = -1
+    hierarchy_frame_idx: int = 0
+    hierarchy: list[HierarchyLevelData] | None = None  # chunk-start frame only
+    frame_index: int = -1         # global video frame index
+    moments: np.ndarray | None = None  # (R,6) ShapeMoments rows
+
+
+def _finalize_labels(lab: torch.Tensor, fix_n4: bool):
+    """Resolve N4 checkerboard diagonal crossings on the device
+    (bitwise-equal to ops/rle.enforce_n4_connectivity per frame)."""
+    if not fix_n4:
+        return lab
+    a = lab[:, :-1, :-1]
+    b = lab[:, :-1, 1:]
+    c = lab[:, 1:, :-1]
+    d = lab[:, 1:, 1:]
+    cross = (a == d) & (b == c) & (a != b)
+    flip = torch.zeros(lab.shape, dtype=torch.bool, device=lab.device)
+    flip[:, :-1, :-1] = cross
+    right = torch.cat([lab[:, :, 1:], lab[:, :, -1:]], dim=2)
+    return torch.where(flip, right, lab)
+
+
+def _preprocess_u8(frame_u8: torch.Tensor, mode: str):
+    """u8 -> f32 -> presmooth (one frame, on its device)."""
+    img = frame_u8.to(torch.float32) * (1.0 / 255.0)
+    return filters.presmooth(img, mode)
+
+
+class DenseSegmentation:
+    """Streaming over-segmentation.
+
+    Usage:
+        ds = DenseSegmentation(DenseSegmentationOptions(), width, height)
+        for frame in frames:
+            results += ds.process_frame(False, frame)
+        results += ds.process_frame(True)
+
+    `stage_seconds` accumulates wall-clock seconds per stage
+    ("ingest_preseg", "chunk_solve", "host_tail"); stage boundaries
+    synchronize the device so each stage owns its device time.
+    """
+
+    def __init__(self, options: DenseSegmentationOptions, frame_width: int,
+                 frame_height: int,
+                 solver_params: ov.OversegParams | None = None, *,
+                 device: str | torch.device = "cuda"):
+        if options.chunk_size < 3:
+            raise ValueError("chunk_size needs to be at least 3 frames")
+        options = dataclasses.replace(options)
+        base = solver_params or ov.OversegParams()
+        self.device = devmod.resolve(device)
+        if not base.edge_table:
+            raise NotImplementedError(
+                "the v1 pixel solver (edge_table=False) is not ported "
+                "(ROADMAP.md, Queue 1 item 13)")
+        chunk_vox = (options.chunk_size + 1) * frame_width * frame_height
+        if options.solver_bands > 1 or chunk_vox > options.max_solve_voxels:
+            raise NotImplementedError(
+                f"banded chunk solves ({chunk_vox} voxels per chunk, "
+                f"max_solve_voxels {options.max_solve_voxels}, solver_bands "
+                f"{options.solver_bands}) are not ported yet (ROADMAP.md, "
+                "Queue 1 item 8)")
+        self.options = options
+        self.frame_width = frame_width
+        self.frame_height = frame_height
+        self.overlap_frames = options.overlap_frames()
+        self.constraint_frames = options.constraint_frames()
+        self.min_region_size = options.min_region_size(frame_width,
+                                                       frame_height)
+        self._params = base._replace(
+            min_region_size=self.min_region_size,
+            metric=options.color_distance,
+            two_stage=options.two_stage_oversegment,
+            bands=1,
+            force_merge_weight=0.002 if options.color_distance == "l1"
+            else 0.001)
+        ov._check_scope(self._params, None)
+        if options.preseg_mode not in ("auto", "felz"):
+            raise NotImplementedError(
+                f"preseg_mode={options.preseg_mode!r} (the flood preseg, K4) "
+                "is not ported yet (ROADMAP.md, Queue 2)")
+        if self._params.table_divisor == ov.OversegParams().table_divisor:
+            # The felz pre-solve collapses pixels enough for a tighter
+            # region table; explicit caller-set divisors are respected.
+            self._params = self._params._replace(table_divisor=16)
+
+        self._buffer: list[torch.Tensor] = []   # smoothed (H,W,3)
+        self._preseg_buffer: list = []          # per-frame K1 results
+        self._chunk_start = 0
+        self._chunk_id = 0
+        self._max_region_id = 0
+        self._num_output_frames = 0
+        self._overlap_gids: list[np.ndarray] = []
+        self.stage_seconds: dict[str, float] = defaultdict(float)
+        self.solve_diag: list[np.ndarray] = []  # per chunk solve
+        self._tail_exec = None
+        self._pending = None
+        self._planes_ready = None
+        if options.async_tail:
+            from concurrent.futures import ThreadPoolExecutor
+            self._tail_exec = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="dense-tail")
+
+    # -- streaming state ---------------------------------------------------
+
+    def load_state(self, state: dict) -> None:
+        """Adopt streaming state held between chunks (e.g. a JAX
+        DenseSegmentation's): `overlap_gids` (list of (H,W) int64 global-id
+        planes), `max_region_id`, `chunk_start`, `chunk_id`,
+        `num_output_frames`, and `buffer` (the buffered preprocessed
+        (H,W,3) float32 frames, whose pre-segmentations are recomputed
+        here)."""
+        self.join()
+        self._overlap_gids = [np.asarray(g, np.int64)
+                              for g in state["overlap_gids"]]
+        self._max_region_id = int(state["max_region_id"])
+        self._chunk_start = int(state["chunk_start"])
+        self._chunk_id = int(state["chunk_id"])
+        self._num_output_frames = int(state["num_output_frames"])
+        self._buffer = [torch.tensor(np.asarray(f, np.float32),
+                                     device=self.device)
+                        for f in state["buffer"]]
+        self._preseg_buffer = [self._preseg_frame(b) for b in self._buffer]
+
+    # -- preprocessing ----------------------------------------------------
+
+    def preprocess(self, frame_bgr_u8: np.ndarray) -> torch.Tensor:
+        """uint8 BGR -> smoothed float [0,1] on the device (the frame
+        crosses to the device as uint8)."""
+        frame = torch.as_tensor(np.ascontiguousarray(frame_bgr_u8),
+                                device=self.device)
+        return _preprocess_u8(frame, self.options.presmoothing)
+
+    def _preseg_frame(self, img: torch.Tensor):
+        """Tile-local felz pre-solve (K1) of one frame: frame-local voxel
+        label ids, finalize levels, cell-positioned region stats."""
+        p = self._params
+        return tile_felz.tile_felzenszwalb(
+            img[None].contiguous(), schedule=p.preseg_schedule,
+            rounds_per_level=p.preseg_rounds_per_level,
+            merge_threshold=p.merge_threshold,
+            metric=self.options.color_distance,
+            fin_margin=p.preseg_fin_margin,
+            fin_eager=p.preseg_fin_eager, fin_gated=p.preseg_fin_gated,
+            pair_merge=p.preseg_pair_merge)
+
+    def _stage_done(self, name: str, t0: float) -> float:
+        devmod.synchronize(self.device)
+        t1 = time.monotonic()
+        self.stage_seconds[name] += t1 - t0
+        return t1
+
+    # -- streaming --------------------------------------------------------
+
+    def process_frame(self, flush: bool,
+                      frame_bgr_u8: np.ndarray | None = None,
+                      flow=None) -> list[SegFrame]:
+        if flow is not None:
+            raise NotImplementedError("optical flow is not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 9)")
+        if frame_bgr_u8 is not None:
+            self._ingest(frame_bgr_u8)
+        if self._chunk_ready(flush):
+            return self._segment_chunk(flush)
+        if flush:
+            return self._drain_pending()
+        return []
+
+    def _ingest(self, frame_bgr_u8: np.ndarray) -> None:
+        t0 = time.monotonic()
+        img = self.preprocess(frame_bgr_u8)
+        self._buffer.append(img)
+        self._preseg_buffer.append(self._preseg_frame(img))
+        self._stage_done("ingest_preseg", t0)
+
+    def _chunk_ready(self, flush: bool) -> bool:
+        return bool(self._buffer) and (
+            flush or
+            len(self._buffer) - self._chunk_start >= self.options.chunk_size)
+
+    def _drain_pending(self) -> list[SegFrame]:
+        if self._pending is None:
+            return []
+        prev = self._pending
+        self._pending = None
+        self._planes_ready = None
+        return list(prev.result())
+
+    def join(self):
+        """Block until deferred tail work has settled."""
+        if self._pending is not None:
+            self._pending.result()
+
+    # -- chunk solve ------------------------------------------------------
+
+    def _segment_chunk(self, flush: bool) -> list[SegFrame]:
+        prep = self._prepare_chunk(flush)
+        res = self._dispatch_solve(prep)
+        return self._post_solve(prep, res, flush)
+
+    def _prepare_chunk(self, flush: bool) -> dict:
+        t_pre0 = time.monotonic()
+        t = len(self._buffer)
+        h, w = self.frame_height, self.frame_width
+        dev = self.device
+        # Canonical temporal extents (full chunks, and a small shape for
+        # flush tails), padding by repeating the last frame.
+        t_small = min(5, self.options.chunk_size + 1)
+        t_solve = t_small if t <= t_small else self.options.chunk_size + 1
+        pad = t_solve - t
+        vol = torch.stack(self._buffer + [self._buffer[-1]] * pad)
+
+        while len(self._preseg_buffer) < len(self._buffer):
+            k = len(self._preseg_buffer)
+            self._preseg_buffer.append(self._preseg_frame(self._buffer[k]))
+        per_frame = self._preseg_buffer[:t] + [self._preseg_buffer[t - 1]] * pad
+        offs = (torch.arange(t_solve, dtype=torch.int32, device=dev)
+                [:, None, None] * (h * w))
+        tile_init = torch.cat([lab for lab, _, _ in per_frame]) + offs
+        tile_fin = torch.cat([fin for _, fin, _ in per_frame])
+        tile_stats = tuple(torch.cat([st[i] for _, _, st in per_frame])
+                           for i in range(4))
+        if not self._params.carry_preseg_fin:
+            tile_fin = None
+
+        # The previous chunk's (possibly deferred) tail produces the
+        # overlap constraint planes.
+        if self._planes_ready is not None:
+            self._planes_ready.wait()
+
+        constraints = frozen = None
+        init_label = tile_init
+        cid_to_gid = np.zeros(0, np.int64)
+        if self._overlap_gids:
+            planes = np.stack(self._overlap_gids)  # (overlap, H, W) gids
+            cid_to_gid, compact = np.unique(planes, return_inverse=True)
+            if len(cid_to_gid) > self._params.max_constraints:
+                raise ValueError(
+                    f"{len(cid_to_gid)} constraint regions exceed the solver "
+                    f"cap {self._params.max_constraints}")
+            compact = compact.reshape(planes.shape).astype(np.int32)
+            n_constrained = 1 + self.constraint_frames
+            constraints = torch.cat([
+                torch.as_tensor(compact[:n_constrained], device=dev),
+                torch.full((t_solve - n_constrained, h, w), -1,
+                           dtype=torch.int32, device=dev)])
+            frozen = torch.zeros((t_solve, h, w), dtype=torch.bool,
+                                 device=dev)
+            frozen[0] = True
+            # Plane 0 pre-merges to one canonical voxel per compact id;
+            # constrained planes pre-merge within (preseg region x
+            # constraint id) groups.
+            init_sm = np.empty((n_constrained, h, w), np.int32)
+            key0 = compact[0].astype(np.int64).ravel()
+            uniq, first = np.unique(key0, return_index=True)
+            init_sm[0] = first[np.searchsorted(uniq, key0)] \
+                .reshape(h, w).astype(np.int32)
+            tile_sm = tile_init[1:n_constrained].cpu().numpy()
+            for pl_i in range(1, n_constrained):
+                key = (tile_sm[pl_i - 1].astype(np.int64).ravel()
+                       * (len(cid_to_gid) + 1)
+                       + compact[pl_i].ravel() + 1)
+                uniq, first = np.unique(key, return_index=True)
+                canon = first[np.searchsorted(uniq, key)]
+                init_sm[pl_i] = (pl_i * h * w
+                                 + canon).reshape(h, w).astype(np.int32)
+            init_label = torch.cat([torch.as_tensor(init_sm, device=dev),
+                                    tile_init[n_constrained:]])
+            if tile_fin is not None:
+                # Constrained planes run fully open (level NUM_BUCKETS).
+                plane = torch.arange(t_solve, device=dev)[:, None, None]
+                tile_fin = torch.where(plane >= n_constrained, tile_fin,
+                                       ov.NUM_BUCKETS)
+
+        # Live-seed count -> 16384-quantized table size (the table caps
+        # are semantics: they decide sink overflow and recompaction).
+        q = 16384
+        flat = init_label.reshape(-1)
+        n_seeds = int((flat == torch.arange(flat.shape[0],
+                                            device=dev)).sum())
+        slots = ((n_seeds + 1024 + q - 1) // q) * q
+        params = self._params._replace(
+            table_slots=min(slots, t_solve * h * w))
+
+        head_planes = (1 + self.constraint_frames if self._overlap_gids
+                       else 0)
+        return dict(t=t, t_solve=t_solve, vol=vol,
+                    constraints=constraints, init_label=init_label,
+                    frozen=frozen, tile_fin=tile_fin, tile_stats=tile_stats,
+                    params=params, head_planes=head_planes,
+                    cid_to_gid=cid_to_gid, t_pre0=t_pre0)
+
+    def _dispatch_solve(self, prep: dict) -> ov.OversegResult:
+        res = ov.oversegment(prep["vol"], constraints=prep["constraints"],
+                             init_label=prep["init_label"],
+                             frozen=prep["frozen"], fin=prep["tile_fin"],
+                             params=prep["params"],
+                             cell_stats=prep["tile_stats"],
+                             head_planes=prep["head_planes"])
+        self.solve_diag.append(res.diag)
+        return res
+
+    def _post_solve(self, prep: dict, res: ov.OversegResult,
+                    flush: bool) -> list[SegFrame]:
+        t = prep["t"]
+        cid_to_gid = prep["cid_to_gid"]
+        n4 = self.options.enforce_n4_connectivity
+        slotvol = lut = labels = None
+        if res.label16 is not None and int(res.nsink) == 0:
+            # Slot-rank compaction (the JAX package's u16 transport path):
+            # compact ids follow slot order, which decides new global ids.
+            lut = res.lut.cpu().numpy()
+            slotvol = _finalize_labels(res.label16, n4)[:t].cpu().numpy()
+        else:
+            labels = _finalize_labels(res.label, n4)[:t].cpu().numpy()
+        res = ov.OversegResult(label=None, constr=res.constr.cpu().numpy(),
+                               size=res.size.cpu().numpy(),
+                               orig=res.orig.cpu().numpy())
+        t_solve1 = self._stage_done("chunk_solve", prep["t_pre0"])
+
+        last_output = (t - 1) if flush else (t - self.overlap_frames)
+        ctx = dict(labels=labels, slotvol=slotvol, lut=lut, res=res,
+                   cid_to_gid=cid_to_gid, flush=flush, t=t,
+                   last_output=last_output,
+                   had_constraints=bool(self._overlap_gids),
+                   chunk_start=self._chunk_start, chunk_id=self._chunk_id,
+                   t0=t_solve1)
+
+        # Rotate streaming state now — the tail never touches it.
+        if flush:
+            self._buffer.clear()
+            self._preseg_buffer.clear()
+            self._chunk_start = 0
+        else:
+            self._buffer = self._buffer[last_output:]
+            self._preseg_buffer = self._preseg_buffer[last_output:]
+            self._chunk_start = 1
+        self._chunk_id += 1
+
+        if self._tail_exec is None:
+            return self._chunk_tail(ctx, None)
+        import threading
+        prev = self._pending
+        ev = threading.Event()
+        self._planes_ready = ev
+        self._pending = self._tail_exec.submit(self._chunk_tail, ctx, ev)
+        out = list(prev.result()) if prev is not None else []
+        if flush:
+            out += self._pending.result()
+            self._pending = None
+            self._planes_ready = None
+        return out
+
+    def _chunk_tail(self, ctx, planes_ready) -> list[SegFrame]:
+        """Host tail: compaction, spatial connectedness, global ids,
+        overlap constraint planes (released via `planes_ready`), level-0
+        hierarchy and per-frame RLE."""
+        res = ctx["res"]
+        cid_to_gid = ctx["cid_to_gid"]
+        flush = ctx["flush"]
+        t = ctx["t"]
+        last_output = ctx["last_output"]
+        chunk_start = ctx["chunk_start"]
+        h, w = self.frame_height, self.frame_width
+
+        try:
+            if ctx["slotvol"] is not None:
+                slotvol = ctx["slotvol"]
+                cnt = np.bincount(slotvol.ravel(), minlength=len(ctx["lut"]))
+                present = cnt > 0
+                rank = (np.cumsum(present) - 1).astype(np.int32)
+                compact = rank[slotvol]
+                num_regions = int(present.sum())
+                constr_of_region = np.asarray(res.constr)[present]
+            else:
+                compact, roots = rle.compact_labels(ctx["labels"])
+                num_regions = len(roots)
+                constr_of_region, _ = ov.region_attrs(res, roots)
+
+            if self.options.enforce_spatial_connectedness:
+                from video_segment_tpu.core import connectedness
+                compact, n2, _origin = \
+                    connectedness.enforce_spatial_connectedness(
+                        compact, num_regions, flow=None)
+                if n2 > num_regions:
+                    # Split-off tubes are new, unconstrained regions.
+                    constr_of_region = np.concatenate(
+                        [constr_of_region,
+                         np.full(n2 - num_regions, -1,
+                                 constr_of_region.dtype)])
+                    num_regions = n2
+
+            # Global id assignment (AssignUniqueRegionIds).
+            gids = np.full(num_regions, -1, np.int64)
+            constrained = constr_of_region >= 0
+            if constrained.any():
+                gids[constrained] = cid_to_gid[constr_of_region[constrained]]
+            new_idx = np.flatnonzero(~constrained)
+            gids[new_idx] = self._max_region_id + np.arange(len(new_idx))
+            self._max_region_id = max(self._max_region_id,
+                                      int(gids.max()) + 1)
+
+            if flush:
+                self._overlap_gids = []
+            else:
+                self._overlap_gids = [gids[compact[f]]
+                                      for f in range(last_output, t)]
+        finally:
+            if planes_ready is not None:
+                planes_ready.set()
+
+        window_lo = 1 if ctx["had_constraints"] else 0  # excl. frozen plane
+        out_chunk_size = last_output - chunk_start + 1
+        hierarchy_frame_idx = self._num_output_frames
+        global_frame0 = self._num_output_frames - chunk_start
+
+        win = compact[window_lo:last_output + 1]
+        start_f, end_f, _ = rle.region_presence(win, num_regions)
+        sizes = rle.region_sizes(win, num_regions)
+        in_window = sizes > 0
+        pairs = rle.neighbor_pairs(win)
+        keep = in_window[pairs[:, 0]] & in_window[pairs[:, 1]]
+        gp = np.sort(gids[pairs[keep]], axis=1)
+        order = np.argsort(gids[in_window], kind="stable")
+        hier = HierarchyLevelData(
+            ids=gids[in_window][order],
+            sizes=sizes[in_window][order],
+            start_frames=global_frame0 + window_lo + start_f[in_window][order],
+            end_frames=global_frame0 + window_lo + end_f[in_window][order],
+            neighbor_pairs=gp)
+
+        results = []
+        for local in range(chunk_start, last_output + 1):
+            gimg = gids[compact[local]]
+            ids, counts, ys, lxs, rxs = rle.frame_rle(gimg)
+            results.append(SegFrame(
+                frame_width=w, frame_height=h,
+                region_ids=ids, interval_counts=counts,
+                ys=ys, lxs=lxs, rxs=rxs,
+                moments=rle.shape_moments(counts, ys, lxs, rxs),
+                chunk_size=out_chunk_size, overlap_start=out_chunk_size,
+                chunk_id=ctx["chunk_id"],
+                hierarchy_frame_idx=hierarchy_frame_idx,
+                hierarchy=[hier] if local == chunk_start else None,
+                frame_index=global_frame0 + local))
+        self._num_output_frames += len(results)
+        self.stage_seconds["host_tail"] += time.monotonic() - ctx["t0"]
+        return results

@@ -1,0 +1,892 @@
+"""Over-segmentation solver: the edge-table path of the bucketized region
+merging, in PyTorch.
+
+Port of video_segment_tpu/core/oversegmentation.py (see its module
+docstring for the semantics): ascending bucket-threshold schedule levels,
+Boruvka merge rounds to a fixed point over an O(regions) edge table, the
+mean-colour gate with the force-merge shortcut, level-end finalization /
+unconstraining, min-region-size forcing and the final constraint
+association.  Scope: the default edge-table solver (`bands=1`,
+`st_levels=0`, spatial + undisplaced temporal directions).  Flow-displaced
+edges, banded solves, supertile levels, two-stage solves, the gradient
+trait and non-default descriptors raise NotImplementedError; the v1 pixel
+solver (`edge_table=False`) is not ported.
+
+JAX's segment reductions become `scatter_reduce_` / `index_add_` into
+tensors pre-filled with the same empty-segment identities (INT32_MAX /
++inf for minima, INT32_MIN for maxima); its `while_loop` merge rounds
+become Python loops whose exit tests sync with the device once per round.
+Packed (bucket << bits | partner) keys stay int32.  Gathers by sentinel or
+partner values are clamped exactly where the JAX code clamps.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from video_segment_tpu_torch.ops import cc
+from video_segment_tpu_torch.ops.tile_felz import sqrt32
+
+NUM_BUCKETS = 2048
+I32MAX = 2 ** 31 - 1
+I32MIN = -2 ** 31
+
+SPATIAL_FWD = ((0, 1), (1, 0), (1, -1), (1, 1))
+SPATIAL_ALL = SPATIAL_FWD + ((0, -1), (-1, 0), (-1, 1), (-1, -1))
+TEMPORAL_DIRS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+MODE_MERGE = 0
+MODE_MIN_SIZE = 1
+
+_ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
+
+
+class OversegParams(NamedTuple):
+    """Solver parameters; fields and defaults identical to the JAX
+    package's OversegParams (see its comments for each knob)."""
+    merge_threshold: float = 0.05
+    split_threshold: float = 0.15
+    force_merge_weight: float = 0.001
+    min_region_size: int = 100
+    metric: str = "l2"
+    max_constraints: int = 1 << 16
+    descriptor: str = "color_mean"
+    gradient_trait: bool = False
+    aggregator: str = "independent"
+    linear_weight: float = 0.5
+    schedule: tuple = (4, 16, 48, 128, 256, 512, 896, 1408, 2047)
+    max_rounds_per_level: int = 5
+    max_final_rounds: int = 12
+    min_size_rounds: int = 12
+    compact_after_levels: int = 1
+    compact_divisor: int = 2
+    two_stage: bool = False
+    edge_table: bool = True
+    edge_topk: int = 12
+    table_divisor: int = 8
+    preseg_threshold: float = 0.01
+    table_slots: int = 0
+    bands: int = 1
+    band_table_slots: int = 0
+    bands_vmap: bool = False
+    preseg_schedule: tuple = (4, 32, 96)
+    carry_preseg_fin: bool = True
+    preseg_fin_margin: float = 1.0
+    min_size_interleave: int = 0
+    fin_every_round: bool = False
+    preseg_fin_eager: bool = True
+    preseg_fin_gated: bool = True
+    preseg_rounds_per_level: int | tuple = 2
+    preseg_pair_merge: bool = False
+    pair_merge: bool = False
+    pair_merge_minsize: bool = False
+    st_levels: int = 0
+    st_h: int = 64
+    st_w: int = 256
+    st_kernel: bool | None = None
+    st_slots: int = 4096
+    # None = auto: the tile kernel (ops/tile_extract) whenever the preseg's
+    # init labels and slot roots exist (the JAX package picks it on TPU).
+    extract_tile: bool | None = None
+
+
+def params_from_jax(p) -> OversegParams:
+    """Map a JAX OversegParams (or its `_asdict()`, values numpy or
+    python) to the port's OversegParams."""
+    d = p._asdict() if hasattr(p, "_asdict") else dict(p)
+    out = {}
+    for name in OversegParams._fields:
+        if name not in d:
+            continue
+        v = d[name]
+        if isinstance(v, np.ndarray):
+            v = tuple(v.tolist()) if v.ndim else v.item()
+        elif isinstance(v, np.generic):
+            v = v.item()
+        elif isinstance(v, list):
+            v = tuple(v)
+        out[name] = v
+    return OversegParams(**out)
+
+
+class SolverState(NamedTuple):
+    label: torch.Tensor   # (N,) int32: root slot per slot / voxel
+    csum: torch.Tensor    # (N,3) f32: color sums at root slots
+    size: torch.Tensor    # (N,)  f32: voxel counts at root slots
+    constr: torch.Tensor  # (N,)  int32: compact constraint id, -1 free
+    fin: torch.Tensor     # (N,)  int32: finalize level (NUM_BUCKETS open)
+    frozen: torch.Tensor  # (N,)  bool: virtual-node role
+
+
+class OversegResult(NamedTuple):
+    """Solver output (slot-spaced region attributes; see the JAX
+    OversegResult).  `label16` holds the final slot per voxel as int32 in
+    this port (the JAX package ships it as uint16 for its host link)."""
+    label: torch.Tensor
+    constr: torch.Tensor
+    size: torch.Tensor
+    orig: torch.Tensor
+    label16: torch.Tensor | None = None
+    lut: torch.Tensor | None = None
+    nsink: torch.Tensor | None = None
+    # Per schedule level [table cap, merge rounds used, live regions after
+    # the level] (always filled: the round loop syncs anyway).
+    diag: np.ndarray | None = None
+
+
+def _np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def region_attrs(res: OversegResult, roots):
+    """(constr, size) for original-root ids `roots`.  Roots with no live
+    slot (sink overflow) come back unconstrained with size 0."""
+    orig = _np(res.orig)
+    order = np.argsort(orig)
+    so = orig[order]
+    pos = np.minimum(np.searchsorted(so, roots), len(so) - 1)
+    ok = so[pos] == roots
+    idx = order[pos]
+    constr = np.where(ok, _np(res.constr)[idx], -1)
+    size = np.where(ok, _np(res.size)[idx], 0.0)
+    return constr, size
+
+
+# ---------------------------------------------------------------------------
+# Segment reductions with JAX's empty-segment identities.
+
+
+def _arange(n, like):
+    return torch.arange(n, dtype=torch.int32, device=like.device)
+
+
+def seg_min(data, ids, n, identity=I32MAX):
+    out = torch.full((n,) + tuple(data.shape[1:]), identity,
+                     dtype=data.dtype, device=data.device)
+    idx = ids.long()
+    if data.ndim > 1:
+        idx = idx.reshape(-1, *([1] * (data.ndim - 1))).expand_as(data)
+    return out.scatter_reduce_(0, idx, data, "amin")
+
+
+def seg_max(data, ids, n, identity=I32MIN):
+    out = torch.full((n,) + tuple(data.shape[1:]), identity,
+                     dtype=data.dtype, device=data.device)
+    return out.scatter_reduce_(0, ids.long(), data, "amax")
+
+
+def seg_sum(data, ids, n):
+    out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add_(0, ids, data)
+
+
+def _take(table, idx):
+    """table[idx] for any-shaped int idx (JAX-style row gather)."""
+    flat = table.index_select(0, idx.reshape(-1))
+    return flat.reshape(tuple(idx.shape) + tuple(table.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# Distances, buckets, stencil directions.
+
+
+def _dist(a, b, metric):
+    d = a - b
+    d0, d1, d2 = d[..., 0], d[..., 1], d[..., 2]
+    if metric == "l1":
+        return (d0.abs() + d1.abs() + d2.abs()) * (1.0 / 3.0)
+    return sqrt32((d0 * d0 + d1 * d1 + d2 * d2) * (1.0 / 3.0))
+
+
+def _bucketize(d):
+    return torch.clamp((d * NUM_BUCKETS).to(torch.int32), 0,
+                       NUM_BUCKETS - 1)
+
+
+def _shift_dir_list(temporal: bool):
+    """[(dt,dy,dx)] of the extraction's directions: forward spatial, plus
+    every backward temporal one when the volume has more than one frame
+    (flow absent, so temporal edges are undisplaced)."""
+    dirs = [(0, dy, dx) for dy, dx in SPATIAL_FWD]
+    if temporal:
+        dirs += [(-1, dy, dx) for dy, dx in TEMPORAL_DIRS]
+    return dirs
+
+
+class _RawDir(NamedTuple):
+    """One direction's raw neighbor view (all (T,H,W)-shaped)."""
+    valid: torch.Tensor
+    bucket: torch.Tensor
+    nb_label: torch.Tensor
+
+
+def _fold_dirs_raw(feats, label3, metric, fold_fn, carry):
+    """Fold `fold_fn(carry, _RawDir) -> carry` over every extraction
+    direction (a Python loop over halo-padded views of the (T,H,W,3) color
+    volume, the bucket source)."""
+    t, h, w, _ = feats.shape
+    dev = feats.device
+    ys = torch.arange(h, device=dev)[None, :, None]
+    xs = torch.arange(w, device=dev)[None, None, :]
+    ts = torch.arange(t, device=dev)[:, None, None]
+    dirs = _shift_dir_list(t > 1)
+    fpad = torch.nn.functional.pad(feats, (0, 0, 1, 1, 1, 1, 1, 1))
+    lpad = torch.nn.functional.pad(label3, (1, 1, 1, 1, 1, 1))
+    for dt, dy, dx in dirs:
+        fn = fpad[1 + dt:1 + dt + t, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+        labn = lpad[1 + dt:1 + dt + t, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+        valid = ((ts + dt >= 0) & (ts + dt < t) & (ys + dy >= 0)
+                 & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w))
+        bucket = _bucketize(_dist(feats, fn, metric))
+        carry = fold_fn(carry, _RawDir(valid=valid, bucket=bucket,
+                                       nb_label=labn))
+    return carry
+
+
+def _desc_distance(own_mean, nb_mean, bucket, p: OversegParams):
+    d = _dist(own_mean, nb_mean, p.metric)
+    w_eff = bucket.to(torch.float32) * (1.0 / NUM_BUCKETS)
+    force = (w_eff < p.force_merge_weight) & (d < 0.2)
+    return torch.where(force, torch.zeros_like(d), d)
+
+
+def _pair_gate(p: OversegParams, is_min_size: bool):
+    """Pair-cancellation gate for _apply_merge (None = off)."""
+    if p.pair_merge and p.pair_merge_minsize:
+        return True
+    if p.pair_merge:
+        return not is_min_size
+    if p.pair_merge_minsize:
+        return is_min_size
+    return None
+
+
+def _select_partners(best_bucket, best_partner, label_flat, n):
+    """Region-level Boruvka selection from per-pixel (bucket, partner)
+    bests: min bucket, then min partner at that bucket."""
+    r_bucket = seg_min(best_bucket, label_flat, n)
+    at_min = ((best_bucket == _take(r_bucket, label_flat))
+              & (best_bucket < I32MAX))
+    key2 = torch.where(at_min, best_partner, I32MAX)
+    return seg_min(key2, label_flat, n)
+
+
+def _apply_merge(state: SolverState, partner, n, up=None, pair_gate=None):
+    """Hook roots onto partners (I32MAX = no hook), re-aggregate.  `up`
+    restricts hooks to larger (True) / smaller (False) slots; `pair_gate`
+    cancels hooks whose target also hooks.  Returns (state, moved,
+    candidates) with the counts as 0-d tensors."""
+    slots = _arange(n, partner)
+    have = partner < I32MAX
+    hook = have
+    if up is not None:
+        hook = hook & ((partner > slots) == up)
+    if pair_gate:
+        tgt = torch.clamp(partner, max=n - 1)
+        hook = hook & ~_take(hook, tgt)
+    parent = torch.where(hook, partner, slots)
+    root = cc.pointer_jump(parent)
+    cols = torch.cat([state.csum, state.size[:, None],
+                      state.frozen.to(torch.float32)[:, None]], dim=1)
+    stats = seg_sum(cols, root, n)
+    constr = seg_max(state.constr, root, n)
+    fin = seg_min(state.fin, root, n)
+    label = _take(root, state.label)
+    moved = (root != slots).sum()
+    return (SolverState(label, stats[:, 0:3], stats[:, 3], constr, fin,
+                        stats[:, 4] > 0),
+            moved, have.sum())
+
+
+# ---------------------------------------------------------------------------
+# Edge-table solver.
+
+_PARTNER_BITS = 20
+_PARTNER_MASK = (1 << _PARTNER_BITS) - 1
+_MAX_TABLE = 1 << 22
+
+
+def _pack_spec(nseg: int):
+    """(partner_bits, bucket_shift) of the packed int32 keys by table size."""
+    if nseg <= (1 << _PARTNER_BITS):
+        return _PARTNER_BITS, 0
+    if nseg > _MAX_TABLE:
+        raise ValueError(f"edge table {nseg} exceeds packable {_MAX_TABLE}; "
+                         "split the solve into more spatial bands")
+    return 22, 2
+
+
+def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
+                   orig_slot=None, head_planes: int = 0):
+    """One-time region-adjacency extraction (see the JAX docstring).
+
+    Returns packed (2*n_dirs, nseg) int32, I32MAX where absent: forward
+    per-(slot, direction) minima in rows [0, n_dirs), the reverse view
+    re-scattered in table space in rows [n_dirs, 2*n_dirs).  With the tile
+    path (p.extract_tile not False and init_label/orig_slot given) the
+    forward minima reduce per (8,128) tile in `tile_reduce_min` (K2) and
+    gather from root cells; head planes keep the scatter path.
+    """
+    t, h, w, _ = vol.shape
+    dev = vol.device
+    bits, bshift = _pack_spec(nseg)
+    pmask = (1 << bits) - 1
+    memb_flat = memb3.reshape(-1)
+    n_dirs = len(SPATIAL_FWD) + (len(TEMPORAL_DIRS) if t > 1 else 0)
+    d_cols = 2 * n_dirs
+    use_tile = p.extract_tile if p.extract_tile is not None else True
+    tile_path = use_tile and init_label is not None and orig_slot is not None
+
+    def packed(d: _RawDir):
+        ok = (d.valid & (d.nb_label != memb3) & (memb3 != sink)
+              & (d.nb_label != sink))
+        bkt = torch.clamp(d.bucket, max=NUM_BUCKETS - 2) >> bshift
+        return torch.where(ok, (bkt << bits) | d.nb_label, I32MAX)
+
+    tab = torch.full((d_cols, nseg), I32MAX, dtype=torch.int32, device=dev)
+    if tile_path:
+        head_n = head_planes * h * w
+        planes = torch.empty((n_dirs, t, h, w), dtype=torch.int32,
+                             device=dev)
+        head_tab = torch.full((n_dirs, nseg), I32MAX, dtype=torch.int32,
+                              device=dev)
+
+        def fold(k, d: _RawDir):
+            pk_a = packed(d)
+            planes[k] = pk_a
+            if head_n:
+                head_tab[k] = seg_min(pk_a.reshape(-1)[:head_n],
+                                      memb_flat[:head_n], nseg)
+            return k + 1
+
+        _fold_dirs_raw(vol, memb3, p.metric, fold, 0)
+        if head_planes:
+            # Head pixels' labels are not tile-local: their reduction is
+            # the scatter above, never the tile pass.
+            planes[:, :head_planes] = I32MAX
+
+        from video_segment_tpu_torch.ops import tile_extract
+        from video_segment_tpu_torch.ops.tile_felz import TILE_H, TILE_W
+        yx = init_label % (h * w)
+        labr = ((yx // w) % TILE_H).reshape(t, h, w).to(torch.int32)
+        labc = (yx % w % TILE_W).reshape(t, h, w).to(torch.int32)
+        red = tile_extract.tile_reduce_min(labr.contiguous(),
+                                           labc.contiguous(), planes)
+        gathered = red.reshape(n_dirs, -1)[:, orig_slot.long()]
+        # A slot's gather is meaningful only if orig_slot really roots it
+        # (overflow/sink slots carry orig_slot 0).
+        slots_i = _arange(nseg, vol)
+        real = ((_take(memb_flat, orig_slot) == slots_i)
+                & (slots_i != sink))[None]
+        fwd_t = torch.where(real, gathered, I32MAX)
+        tab[:n_dirs] = torch.minimum(fwd_t, head_tab)
+    else:
+        def fold(k, d: _RawDir):
+            tab[k] = seg_min(packed(d).reshape(-1), memb_flat, nseg)
+            return k + 1
+
+        _fold_dirs_raw(vol, memb3, p.metric, fold, 0)
+
+    # Reverse view: column k's entry at slot a, packed (bucket, partner b),
+    # re-scatters as (bucket, a) onto slot b.  Partner ids are clamped into
+    # the table (JAX drops out-of-range scatter updates; valid partners are
+    # always in range).
+    fwd = tab[:n_dirs]
+    valid = fwd < I32MAX
+    ploc = torch.clamp(fwd & pmask, 0, nseg - 1)
+    own_g = _arange(nseg, vol)[None]
+    rev_val = torch.where(valid, ((fwd >> bits) << bits) | own_g, I32MAX)
+    kidx = _arange(n_dirs, vol)[:, None].long()
+    rev = seg_min(rev_val.reshape(-1), (kidx * nseg + ploc).reshape(-1),
+                  n_dirs * nseg).reshape(n_dirs, nseg)
+    tab[n_dirs:] = rev
+    return tab
+
+
+def _topk_edges(tab, k):
+    """(D, nseg) packed table -> per-slot K smallest distinct edges:
+    (partner (nseg,K) int32 with I32MAX absent, bucket (nseg,K) int32 with
+    NUM_BUCKETS absent)."""
+    nseg = tab.shape[1]
+    bits, bshift = _pack_spec(nseg)
+    pmask = (1 << bits) - 1
+    cur = tab.t().contiguous()
+    k = min(k, cur.shape[1])
+    parts, bkts = [], []
+    for _ in range(k):
+        m = cur.min(dim=1).values
+        cur = torch.where(cur == m[:, None], I32MAX, cur)
+        valid = m < I32MAX
+        parts.append(torch.where(valid, m & pmask, I32MAX))
+        bkts.append(torch.where(valid, (m >> bits) << bshift, NUM_BUCKETS))
+    return torch.stack(parts, dim=1), torch.stack(bkts, dim=1)
+
+
+def _table_round(ts: SolverState, ptn, pbk, theta, up, mode, nseg, sink,
+                 p: OversegParams):
+    """One Boruvka round over the region edge table (see the JAX
+    `_table_round`; supertile gating is not ported)."""
+    root = ts.label
+    bits, bshift = _pack_spec(nseg)
+    mean = ts.csum / torch.clamp(ts.size, min=1.0)[:, None]
+
+    own = root
+    own_mean = _take(mean, own)
+    own_size = _take(ts.size, own)
+    own_constr = _take(ts.constr, own)
+    own_fin = _take(ts.fin, own)
+
+    ptn_c = torch.clamp(ptn, max=nseg - 1)
+    a2 = _take(root, ptn_c)                      # (nseg,K) partner roots
+    nb_mean = _take(mean, a2)
+    nb_constr = _take(ts.constr, a2)
+    nb_fin = _take(ts.fin, a2)
+
+    live = ((ptn < I32MAX) & (a2 != own[:, None]) & (own[:, None] != sink)
+            & (a2 != sink))
+    dd = _desc_distance(own_mean[:, None, :], nb_mean, pbk, p)
+    mthr, sthr = p.merge_threshold, p.split_threshold
+
+    either_free = (own_constr[:, None] < 0) | (nb_constr < 0)
+    regular = (either_free & (pbk < own_fin[:, None]) & (pbk < nb_fin)
+               & (dd < mthr))
+    constr_same = (~either_free & (own_constr[:, None] == nb_constr)
+                   & (dd <= sthr))
+    adm_merge = (pbk <= theta) & (regular | constr_same)
+    both_constr_diff = (~either_free) & (own_constr[:, None] != nb_constr)
+    own_small = own_size < p.min_region_size
+    adm_small = own_small[:, None] & ~both_constr_diff & (pbk <= theta)
+    is_min_size = mode == MODE_MIN_SIZE
+    adm = live & (adm_small if is_min_size else adm_merge)
+
+    packed = torch.where(
+        adm, ((torch.clamp(pbk, max=NUM_BUCKETS - 2) >> bshift) << bits) | a2,
+        I32MAX)
+    best_slot = packed.min(dim=1).values
+    r_best = seg_min(best_slot, own, nseg)
+    partner = torch.where(r_best < I32MAX, r_best & ((1 << bits) - 1),
+                          I32MAX)
+    return _apply_merge(ts, partner, nseg, up=up,
+                        pair_gate=_pair_gate(p, is_min_size))
+
+
+def _table_level_end(ts: SolverState, tab, theta, nseg, sink,
+                     p: OversegParams):
+    """Level-end finalization / unconstraining over the full edge table."""
+    root = ts.label
+    bits, bshift = _pack_spec(nseg)
+    mean = ts.csum / torch.clamp(ts.size, min=1.0)[:, None]
+    own = root
+    own_mean = _take(mean, own)
+    own_size = _take(ts.size, own)
+    own_constr = _take(ts.constr, own)
+    own_fin = _take(ts.fin, own)
+    own_frozen = _take(ts.frozen, own)
+
+    pk = tab.t()                                 # (nseg, D)
+    has = pk < I32MAX
+    ptn = torch.where(has, pk & ((1 << bits) - 1), 0)
+    bkt = torch.where(has, (pk >> bits) << bshift, NUM_BUCKETS)
+    a2 = _take(root, ptn)
+    nb_mean = _take(mean, a2)
+    nb_constr = _take(ts.constr, a2)
+    nb_fin = _take(ts.fin, a2)
+    nb_size = _take(ts.size, a2)
+
+    live = has & (a2 != own[:, None]) & (own[:, None] != sink) & (a2 != sink)
+    act = live & (bkt <= theta)
+    dd = _desc_distance(own_mean[:, None, :], nb_mean, bkt, p)
+    mthr, sthr = p.merge_threshold, p.split_threshold
+
+    either_free = (own_constr[:, None] < 0) | (nb_constr < 0)
+    fail = (act & either_free & (bkt < own_fin[:, None]) & (bkt < nb_fin)
+            & (dd >= mthr))
+    split = (act & ~either_free & (own_constr[:, None] == nb_constr)
+             & (dd > sthr))
+    uncon = (split & ~(nb_size < 0.3 * own_size[:, None])
+             & ~own_frozen[:, None])
+
+    fail_slot = torch.where(fail, bkt, I32MAX).min(dim=1).values
+    uncon_slot = uncon.any(dim=1)
+    fail_r = seg_min(fail_slot, own, nseg)
+    uncon_r = seg_max(uncon_slot.to(torch.int32), own, nseg) > 0
+    return ts._replace(fin=torch.minimum(ts.fin, fail_r),
+                       constr=torch.where(uncon_r, -1, ts.constr))
+
+
+def _merge_constrained(state: SolverState, num_constraints: int, n: int,
+                       p: OversegParams):
+    """Final constraint association (MergeConstrainedRegions): frozen
+    regions always merge into their group's representative; real regions
+    merge when within the split threshold and are unconstrained otherwise."""
+    slots = _arange(n, state.label)
+    is_root = state.size > 0
+    cid = torch.where(is_root & (state.constr >= 0), state.constr,
+                      num_constraints)
+    frozen_slot = torch.where(state.frozen, slots, I32MAX)
+    rep_frozen = seg_min(frozen_slot, cid, num_constraints + 1)
+    rep_any = seg_min(slots, cid, num_constraints + 1)
+    rep = torch.where(rep_frozen < I32MAX, rep_frozen, rep_any)
+
+    target = _take(rep, torch.clamp(state.constr, 0, num_constraints - 1))
+    active = (cid < num_constraints) & (target != slots)
+    mean = state.csum / torch.clamp(state.size, min=1.0)[:, None]
+    # `target` may hold rep's I32MAX identity for inactive slots; clamp the
+    # gather (JAX clamps out-of-range gathers).
+    d = _dist(mean, _take(mean, torch.clamp(target, max=n - 1)), p.metric)
+    merge = active & (state.frozen | (d <= p.split_threshold))
+    uncon = active & ~merge & ~state.frozen
+
+    state = state._replace(constr=torch.where(uncon, -1, state.constr))
+    partner = torch.where(merge, target, I32MAX)
+    state, _, _ = _apply_merge(state, partner, n)
+    return state
+
+
+def _table_cap(params: OversegParams, n_pix: int, h: int, w: int,
+               has_constraints: bool) -> int:
+    """Static table size: caller-provided live-count bucket, or the
+    worst-case pixel-fraction fallback."""
+    if params.table_slots:
+        return min(params.table_slots, n_pix, _MAX_TABLE - 2)
+    extra = ((h * w) // 4 + params.max_constraints) if has_constraints \
+        else 0
+    return min(max(n_pix // params.table_divisor, 1 << 14) + extra, n_pix,
+               _MAX_TABLE - 2)
+
+
+def _init_table(vol, init_label, constr_init, frozen_init, fin_init,
+                r_cap: int, has_constraints: bool, cell_stats=None,
+                head_planes: int = 0):
+    """Fused seed compaction: renumber self-rooted init labels into table
+    slots and aggregate region statistics there (gathered from root cells
+    with `cell_stats`, except for the first `head_planes` planes).
+
+    Returns (table SolverState with identity labels, per-pixel membership,
+    per-slot original root voxel id)."""
+    n_pix = init_label.shape[0]
+    h_, w_ = vol.shape[1], vol.shape[2]
+    nseg = r_cap + 1
+    dev = vol.device
+    slots = _arange(n_pix, vol)
+    is_root = init_label == slots
+    cidx_all = torch.cumsum(is_root.to(torch.int32), 0,
+                            dtype=torch.int32) - 1
+    ok = is_root & (cidx_all < r_cap)
+    cidx = torch.where(ok, cidx_all, r_cap)
+    memb = _take(cidx, init_label)
+    orig_slot = torch.zeros(nseg, dtype=torch.int32, device=dev) \
+        .scatter_reduce_(0, cidx.long(), torch.where(ok, slots, 0), "amax")
+
+    volf = vol.reshape(n_pix, -1)
+    color = volf[:, 0:3]
+    ones = torch.ones((n_pix, 1), dtype=torch.float32, device=dev)
+
+    if cell_stats is not None:
+        head_n = head_planes * h_ * w_
+        size_c, c0, c1, c2 = (x.reshape(n_pix) for x in cell_stats)
+        n_active = ok.to(torch.int32).sum()
+        valid = _arange(nseg, vol) < n_active
+
+        def zero_head(x):
+            if not head_n:
+                return x
+            return torch.cat([torch.zeros(head_n, dtype=x.dtype, device=dev),
+                              x[head_n:]])
+
+        size = torch.where(valid, _take(zero_head(size_c), orig_slot), 0.0)
+        csum = torch.stack([_take(zero_head(c), orig_slot)
+                            for c in (c0, c1, c2)], dim=1) \
+            * valid[:, None].to(torch.float32)
+        fin = torch.where(valid, _take(fin_init, orig_slot), I32MAX)
+        if head_n:
+            hstats = seg_sum(torch.cat([color[:head_n], ones[:head_n]], 1),
+                             memb[:head_n], nseg)
+            csum = csum + hstats[:, 0:3]
+            size = size + hstats[:, 3]
+        if has_constraints:
+            hm = memb[:head_n]
+            constr = torch.clamp(seg_max(constr_init[:head_n], hm, nseg),
+                                 min=-1)
+            frozen = seg_max(frozen_init[:head_n].to(torch.int32), hm,
+                             nseg) > 0
+        else:
+            constr = torch.full((nseg,), -1, dtype=torch.int32, device=dev)
+            frozen = torch.zeros(nseg, dtype=torch.bool, device=dev)
+    else:
+        stats = seg_sum(torch.cat([color, ones], dim=1), memb, nseg)
+        csum = stats[:, 0:3]
+        size = stats[:, 3]
+        if has_constraints:
+            constr = seg_max(constr_init, memb, nseg)
+            frozen = seg_max(frozen_init.to(torch.int32), memb, nseg) > 0
+        else:
+            constr = torch.full((nseg,), -1, dtype=torch.int32, device=dev)
+            frozen = torch.zeros(nseg, dtype=torch.bool, device=dev)
+        fin = seg_min(fin_init, memb, nseg)
+    # Sink must never merge: finalize level 0, unconstrained.
+    fin[r_cap] = 0
+    constr[r_cap] = -1
+    ts = SolverState(_arange(nseg, vol), csum, size, constr, fin, frozen)
+    return ts, memb, orig_slot
+
+
+def _solve_edge_table(vol, init_label, constr_init, frozen_init,
+                      fin_init, params, n_pix, thetas, level_rounds,
+                      has_constraints, cell_stats=None,
+                      head_planes: int = 0):
+    """Edge-table phases: table init, edge extraction, table solve."""
+    t, h, w, _ = vol.shape
+    r_cap = _table_cap(params, n_pix, h, w, has_constraints)
+    nseg = r_cap + 1
+    ts, memb, orig_slot = _init_table(vol, init_label, constr_init,
+                                      frozen_init, fin_init, r_cap,
+                                      has_constraints, cell_stats,
+                                      head_planes)
+    tab = _extract_edges(memb.reshape(t, h, w), vol, nseg, r_cap, params,
+                         init_label=init_label, orig_slot=orig_slot,
+                         head_planes=head_planes)
+    return _finish_table_solve(ts, tab, memb, orig_slot, init_label,
+                               (t, h, w), params, thetas, level_rounds,
+                               has_constraints)
+
+
+_PHASE_Q = 1 << 14      # phase-cap quantization
+_PHASE_FLOOR = 1 << 15  # smallest recompacted table
+
+
+def _table_phase_caps(nseg0: int) -> tuple:
+    """Shrinking table caps for the schedule phases (halving to a floor,
+    16k-quantized).  These caps are semantics (sink overflow, recompaction
+    points), so they equal the JAX package's exactly."""
+    caps = [nseg0]
+    while True:
+        tgt = max(caps[-1] // 2, _PHASE_FLOOR)
+        nxt = -(-tgt // _PHASE_Q) * _PHASE_Q + 1
+        if nxt >= caps[-1]:
+            return tuple(caps)
+        caps.append(nxt)
+
+
+def _recompact_table(ts, tab, o2n, fb_slot, orig_slot, new_cap: int):
+    """Mid-schedule table shrink: renumber live roots into a `new_cap`-slot
+    table (last slot = sink), remap and re-min the edge table, compose the
+    original-slot chain `o2n`, and record dying regions' merged-so-far
+    labels in `fb_slot`."""
+    old_cap = ts.label.shape[0]
+    old_sink = old_cap - 1
+    new_sink = new_cap - 1
+    dev = tab.device
+    root = ts.label
+    slots = _arange(old_cap, tab)
+    is_root = (root == slots) & (ts.size > 0) & (slots != old_sink)
+    cidx_all = torch.cumsum(is_root.to(torch.int32), 0,
+                            dtype=torch.int32) - 1
+    ok = is_root & (cidx_all < new_sink)
+    cidx = torch.where(ok, cidx_all, new_sink)
+    new_of = _take(cidx, root)
+    n_active = ok.to(torch.int32).sum()
+
+    orig_min = seg_min(orig_slot, root, old_cap)
+
+    new_slots = _arange(new_cap, tab)
+    inv = torch.zeros(new_cap, dtype=torch.int32, device=dev) \
+        .scatter_reduce_(0, cidx.long(), torch.where(ok, slots, 0), "amax")
+    valid_new = new_slots < n_active
+    vf = valid_new.to(torch.float32)[:, None]
+    ts2 = SolverState(
+        label=new_slots,
+        csum=_take(ts.csum, inv) * vf,
+        size=_take(ts.size, inv) * vf[:, 0],
+        constr=torch.where(valid_new, _take(ts.constr, inv), -1),
+        fin=torch.where(valid_new, _take(ts.fin, inv), 0),
+        frozen=valid_new & _take(ts.frozen, inv))
+
+    bits_o, bshift_o = _pack_spec(old_cap)
+    bits_n, bshift_n = _pack_spec(new_cap)
+    valid_e = tab < I32MAX
+    ptn_o = torch.clamp(tab & ((1 << bits_o) - 1), max=old_cap - 1)
+    bkt = (tab >> bits_o) << bshift_o
+    p_new = _take(new_of, ptn_o)
+    ok_e = (valid_e & (p_new != new_sink) & (new_of[None, :] != new_sink)
+            & (p_new != new_of[None, :]))
+    pk_new = torch.where(
+        ok_e,
+        ((torch.clamp(bkt, max=NUM_BUCKETS - 2) >> bshift_n) << bits_n)
+        | p_new, I32MAX)
+    d_cols = tab.shape[0]
+    seg2 = (new_of[None, :].long()
+            + (torch.arange(d_cols, device=dev) * new_cap)[:, None])
+    tab2 = seg_min(pk_new.reshape(-1), seg2.reshape(-1),
+                   d_cols * new_cap).reshape(d_cols, new_cap)
+
+    r_o = _take(root, o2n)
+    died = (r_o != old_sink) & ~_take(ok, r_o)
+    fb_slot2 = torch.where(died, _take(orig_min, r_o), fb_slot)
+    o2n2 = _take(new_of, o2n)
+    orig2 = torch.where(valid_new, _take(orig_min, inv), 0)
+    return ts2, tab2, o2n2, fb_slot2, orig2
+
+
+def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
+                        params, thetas, level_rounds, has_constraints):
+    """Top-K edges, schedule levels over shrinking table phases, min-size
+    forcing, constraint association, label reconstruction."""
+    t, h, w = shape3
+    nseg0 = ts.label.shape[0]
+    n_levels = len(thetas)
+    dev = tab.device
+    diag = np.zeros((n_levels, 3), np.int32)
+
+    def live_count(st, cap):
+        return int(((st.label == _arange(cap, tab)) & (st.size > 0)).sum())
+
+    def run_rounds(st, theta, max_rounds, mode, p_tab, b_tab, end_tab=None):
+        cap = p_tab.shape[0]
+        sink = cap - 1
+        scan_each = end_tab is not None and params.fin_every_round
+        i = idle = 0
+        while idle < 2 and i < max_rounds:
+            if scan_each:
+                st = _table_level_end(st, end_tab, theta, cap, sink, params)
+            st, moved, cands = _table_round(st, p_tab, b_tab, theta,
+                                            (i % 2) == 0, mode, cap, sink,
+                                            params)
+            moved, cands = torch.stack([moved, cands]).tolist()
+            idle = 2 if cands == 0 else (0 if moved > 0 else idle + 1)
+            i += 1
+        return st, i
+
+    caps = _table_phase_caps(nseg0)
+    o2n = _arange(nseg0, tab)
+    fb_slot = torch.zeros(nseg0, dtype=torch.int32, device=dev)
+    lvl = 0
+    ptn = pbk = None
+    for pi, cap in enumerate(caps):
+        sink = cap - 1
+        if pi > 0:
+            ts, tab, o2n, fb_slot, orig_slot = _recompact_table(
+                ts, tab, o2n, fb_slot, orig_slot, cap)
+        ptn, pbk = _topk_edges(tab, params.edge_topk)
+        # Level-end scans sweep the full extraction table when it is
+        # affordable; larger tables fall back to the per-slot top-K edges.
+        if cap <= (1 << _PARTNER_BITS):
+            end_tab = tab
+        else:
+            bits, bshift = _pack_spec(cap)
+            end_tab = torch.where(
+                ptn < I32MAX,
+                ((torch.clamp(pbk, max=NUM_BUCKETS - 2) >> bshift) << bits)
+                | ptn, I32MAX).t()
+        next_cap = caps[pi + 1] if pi + 1 < len(caps) else 0
+        act = live_count(ts, cap)
+        while lvl < n_levels and (not next_cap or act > next_cap - 2):
+            ts, n_used = run_rounds(ts, thetas[lvl], level_rounds[lvl],
+                                    MODE_MERGE, ptn, pbk, end_tab=end_tab)
+            ts = _table_level_end(ts, end_tab, thetas[lvl], cap, sink,
+                                  params)
+            if params.min_size_interleave and params.min_region_size > 1:
+                ts, _ = run_rounds(ts, thetas[lvl],
+                                   params.min_size_interleave,
+                                   MODE_MIN_SIZE, ptn, pbk)
+            act = live_count(ts, cap)
+            diag[lvl] = (cap, n_used, act)
+            lvl += 1
+
+    cap_f = caps[-1]
+    sink_f = cap_f - 1
+    if params.min_region_size > 1:
+        ts, _ = run_rounds(ts, NUM_BUCKETS, params.min_size_rounds,
+                           MODE_MIN_SIZE, ptn, pbk)
+
+    if has_constraints:
+        ts = _merge_constrained(ts, params.max_constraints, cap_f, params)
+
+    # Labels in original root-voxel space: each live region takes its
+    # minimum original root; sink pixels keep their merged-so-far label
+    # (fallback), or their pre-table root if they overflowed at seed time.
+    orig_min = seg_min(orig_slot, ts.label, cap_f)
+    root_px = _take(ts.label, _take(o2n, memb))
+    fb_px = torch.where(memb == nseg0 - 1, init_label, _take(fb_slot, memb))
+    final = torch.where(root_px == sink_f, fb_px,
+                        _take(orig_min, root_px))
+    live = (ts.size > 0) & (_arange(cap_f, tab) != sink_f)
+    can16 = cap_f <= (1 << 16)
+    return OversegResult(
+        label=final.reshape(t, h, w),
+        constr=torch.where(live, ts.constr, -1),
+        size=torch.where(live, ts.size, 0.0),
+        orig=torch.where(live, orig_min, -1),
+        label16=root_px.reshape(t, h, w) if can16 else None,
+        lut=orig_min if can16 else None,
+        nsink=(root_px == sink_f).to(torch.int32).sum() if can16 else None,
+        diag=diag)
+
+
+def _check_scope(params: OversegParams, flow) -> None:
+    """Raise for the solver configurations this port does not cover."""
+    if flow is not None:
+        raise NotImplementedError(f"optical flow: {_ROADMAP} item 9")
+    if not params.edge_table:
+        raise NotImplementedError(
+            "the v1 pixel solver (edge_table=False) is not ported "
+            "(ROADMAP.md, Queue 1 item 13)")
+    if params.bands > 1:
+        raise NotImplementedError(f"banded solve (bands>1): {_ROADMAP} "
+                                  "item 8")
+    if params.st_levels > 0:
+        raise NotImplementedError(f"supertile levels (st_levels>0, K3): "
+                                  f"{_ROADMAP} item 11")
+    if params.two_stage:
+        raise NotImplementedError(f"two_stage: {_ROADMAP} item 11")
+    if params.gradient_trait:
+        raise NotImplementedError(f"gradient_trait: {_ROADMAP} item 11")
+    if params.descriptor != "color_mean":
+        raise NotImplementedError(f"descriptor {params.descriptor!r}: "
+                                  f"{_ROADMAP} item 11")
+
+
+def oversegment(vol, flow=None, constraints=None, init_label=None,
+                frozen=None, fin=None,
+                params: OversegParams = OversegParams(),
+                cell_stats=None, head_planes: int = 0) -> OversegResult:
+    """Over-segment a chunk volume (the edge-table solver).
+
+    Args mirror the JAX `oversegment`: vol (T,H,W,3) float32 smoothed BGR
+    in [0,1]; optional (T,H,W) constraints (int, -1 free), init_label,
+    frozen (bool), fin (int levels or bool); `cell_stats` (size, c0, c1,
+    c2) cell-positioned at root voxels as `tile_felzenszwalb` exports;
+    `head_planes` leading planes of host-built constraint groups.  All
+    tensors live on vol's device; the solve runs there.
+    """
+    _check_scope(params, flow)
+    t, h, w, _ = vol.shape
+    n = t * h * w
+    dev = vol.device
+    if init_label is None:
+        init_label = torch.arange(n, dtype=torch.int32, device=dev)
+    else:
+        init_label = init_label.reshape(n).to(torch.int32)
+    has_constraints = constraints is not None
+    constr_init = (constraints.reshape(n).to(torch.int32) if has_constraints
+                   else torch.full((n,), -1, dtype=torch.int32, device=dev))
+    frozen_init = (frozen.reshape(n).to(torch.bool) if frozen is not None
+                   else torch.zeros(n, dtype=torch.bool, device=dev))
+    if fin is None:
+        fin_init = torch.full((n,), NUM_BUCKETS, dtype=torch.int32,
+                              device=dev)
+    elif fin.dtype == torch.bool:
+        fin_init = torch.where(fin.reshape(n), 0, NUM_BUCKETS) \
+            .to(torch.int32)
+    else:
+        fin_init = fin.reshape(n).to(torch.int32)
+    thetas = [int(x) for x in params.schedule]
+    level_rounds = ([params.max_rounds_per_level] * (len(thetas) - 1)
+                    + [params.max_final_rounds])
+    return _solve_edge_table(vol, init_label, constr_init, frozen_init,
+                             fin_init, params, n, thetas, level_rounds,
+                             has_constraints, cell_stats, head_planes)

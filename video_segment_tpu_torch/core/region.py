@@ -1,0 +1,457 @@
+"""Streaming hierarchical region segmentation over chunk sets (PyTorch port).
+
+Port of video_segment_tpu/core/region.py (semantics and reference
+citations there): consumes the dense stage's per-frame results plus
+per-frame Lab appearance features, groups chunks into chunk sets (default
+6 chunks, overlap 2), accumulates per-region Lab histograms, agglomerates
+hierarchy levels on the device and re-emits frames with the multi-level
+hierarchy attached.  Cross-set continuity (counterpart constraints and id
+inheritance) is the JAX package's.
+
+Scope: appearance only.  Flow histograms, windowed appearance
+(`appearance_window_size > 0`) and `save_descriptors` raise
+NotImplementedError.  Histograms come from the native threaded
+accumulator of video_segment_tpu.native; `_accumulate_all` is the torch
+path when that library is unavailable.  Lab conversion is `bgr_to_lab_u8`
+(OpenCV's 8-bit BGR->Lab formula; no cv2 import).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from video_segment_tpu import native
+from video_segment_tpu.core.options import RegionSegmentationOptions
+from video_segment_tpu.ops import rle
+from video_segment_tpu_torch import device as devmod
+from video_segment_tpu_torch.core import agglomeration
+from video_segment_tpu_torch.core.dense import HierarchyLevelData, SegFrame
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(4, (x - 1).bit_length())
+
+
+# OpenCV's 8-bit BGR->Lab is fixed point (color.cpp, RGB2Lab_b): gamma and
+# cube-root lookup tables, XYZ coefficients scaled by 2^12; reproduced here
+# (L exact, a/b within 1 of cv2, which blends in a packed 3-D table).
+_LAB_SHIFT = 12
+_GAMMA_SHIFT = 3
+_LAB_SHIFT2 = _LAB_SHIFT + _GAMMA_SHIFT
+
+
+def _lab_tables():
+    v = np.arange(256) / 255.0
+    gamma = np.where(v <= 0.04045, v / 12.92, ((v + 0.055) / 1.055) ** 2.4)
+    gamma_tab = np.rint(255.0 * (1 << _GAMMA_SHIFT)
+                        * gamma.astype(np.float32)).astype(np.int64)
+    x = np.arange(256 * 3 // 2 * (1 << _GAMMA_SHIFT)) \
+        / (255.0 * (1 << _GAMMA_SHIFT))
+    cbrt_tab = np.rint((1 << _LAB_SHIFT2) * np.where(
+        x < 0.008856, x * 7.787 + 16.0 / 116.0, np.cbrt(x))).astype(np.int64)
+    srgb2xyz = np.array([[0.412453, 0.357580, 0.180423],
+                         [0.212671, 0.715160, 0.072169],
+                         [0.019334, 0.119193, 0.950227]], np.float32)
+    white = np.array([0.950456, 1.0, 1.088754], np.float32)
+    coeffs = np.rint((1 << _LAB_SHIFT) * srgb2xyz.astype(np.float64)
+                     / white.astype(np.float64)[:, None]).astype(np.int64)
+    return gamma_tab, cbrt_tab, coeffs
+
+
+_GAMMA_TAB, _CBRT_TAB, _XYZ_COEFFS = _lab_tables()
+
+
+def _descale(x, n):
+    return (x + (1 << (n - 1))) >> n
+
+
+def bgr_to_lab_u8(frame_bgr_u8: np.ndarray) -> np.ndarray:
+    """(H,W,3) uint8 BGR -> uint8 Lab with OpenCV's 8-bit encoding
+    (L*255/100, a+128, b+128; sRGB gamma, D65 white), within 1 of
+    cv2.cvtColor(COLOR_BGR2Lab) on every channel."""
+    rgb = _GAMMA_TAB[frame_bgr_u8[..., ::-1]]
+    f = [_CBRT_TAB[_descale(rgb @ _XYZ_COEFFS[i], _LAB_SHIFT)]
+         for i in range(3)]
+    lscale = (116 * 255 + 50) // 100
+    lshift = -((16 * 255 * (1 << _LAB_SHIFT2) + 50) // 100)
+    half = 128 * (1 << _LAB_SHIFT2)
+    lab = np.stack([_descale(lscale * f[1] + lshift, _LAB_SHIFT2),
+                    _descale(500 * (f[0] - f[1]) + half, _LAB_SHIFT2),
+                    _descale(200 * (f[1] - f[2]) + half, _LAB_SHIFT2)],
+                   axis=-1)
+    return np.clip(lab, 0, 255).astype(np.uint8)
+
+
+def rasterize_ids(draw_ids, counts, intervals, h, w) -> np.ndarray:
+    """Vectorized scanline fill: per-region draw ids over RLE intervals
+    (copy of video_segment_tpu/segment_util/util.py:rasterize_ids, whose
+    module imports the protobuf layer)."""
+    img = np.full(h * w, -1, np.int64)
+    if len(intervals) == 0:
+        return img.reshape(h, w)
+    ys = intervals[:, 0].astype(np.int64)
+    lxs = intervals[:, 1].astype(np.int64)
+    rxs = intervals[:, 2].astype(np.int64)
+    lens = rxs - lxs + 1
+    starts = ys * w + lxs
+    total = int(lens.sum())
+    offs = np.arange(total) - np.repeat(
+        np.concatenate(([0], np.cumsum(lens)[:-1])), lens)
+    pos = np.repeat(starts, lens) + offs
+    vals = np.repeat(np.repeat(draw_ids, counts), lens)
+    img[pos] = vals
+    return img.reshape(h, w)
+
+
+def _accumulate_all(labels: torch.Tensor, lab_u8: torch.Tensor, rcap: int,
+                    lum_bins: int, color_bins: int) -> torch.Tensor:
+    """(rcap, bins) Lab color histograms with trilinear interpolated adds
+    (histograms.cpp:142-199), the torch path used without the native
+    accumulator."""
+    nbins = lum_bins * color_bins * color_bins
+    lflat = labels.reshape(-1).long()
+    lab = lab_u8.reshape(-1, 3).to(torch.float32)
+
+    def axis(vals, bins):
+        b = vals * ((bins - 1) / 255.0)
+        i0 = torch.floor(b).to(torch.int64)
+        d = b - i0.to(torch.float32)
+        i1 = i0 + (d >= 1e-6).to(torch.int64)
+        return ((i0, 1.0 - d), (i1, d))
+
+    xs = axis(lab[:, 0], lum_bins)
+    ys = axis(lab[:, 1], color_bins)
+    zs = axis(lab[:, 2], color_bins)
+    hist = torch.zeros(rcap * nbins, dtype=torch.float32,
+                       device=labels.device)
+    base = lflat * nbins
+    for xi, wx in xs:
+        for yi, wy in ys:
+            for zi, wz in zs:
+                hist.index_add_(
+                    0, base + (xi * color_bins + yi) * color_bins + zi,
+                    wx * wy * wz)
+    return hist.reshape(rcap, nbins)
+
+
+@dataclasses.dataclass
+class _ChunkData:
+    frames: list                  # SegFrame records (emitted window)
+    gids: np.ndarray              # (Rc,) sorted region ids in chunk
+    sizes: np.ndarray
+    start_frames: np.ndarray
+    end_frames: np.ndarray
+    neighbor_pairs: np.ndarray
+    hist: np.ndarray | None = None       # (Rc, B) float32 host cache
+
+
+class RegionSegmentation:
+    """Chunk-set hierarchical segmentation.  `stage_seconds["region"]`
+    accumulates the wall-clock seconds spent in histograms, agglomeration
+    and emission."""
+
+    def __init__(self, options: RegionSegmentationOptions, frame_width: int,
+                 frame_height: int, *, device: str | torch.device = "cuda"):
+        if options.appearance_window_size > 0:
+            raise NotImplementedError("windowed appearance histograms are "
+                                      "not ported yet (ROADMAP.md, Queue 1 "
+                                      "item 11)")
+        if options.save_descriptors:
+            raise NotImplementedError("save_descriptors is not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 11)")
+        self.options = options
+        self.device = devmod.resolve(device)
+        self.frame_width = frame_width
+        self.frame_height = frame_height
+        self.num_color_bins = (options.luminance_bins * options.color_bins
+                               * options.color_bins)
+        self._features: dict[int, np.ndarray] = {}   # frame -> Lab uint8
+        self._chunks: list[_ChunkData] = []
+        self._open_frames: list = []
+        self._set_id = 0
+        self._prev_assign: list = []
+        self.stage_seconds = {"region": 0.0}
+
+    # -- per-frame feature ingestion -------------------------------------
+
+    def add_frame(self, frame_index: int, frame_bgr_u8: np.ndarray,
+                  flow=None):
+        """Register a video frame's appearance (Lab) features."""
+        if flow is not None:
+            raise NotImplementedError("flow histograms are not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 9)")
+        t0 = time.monotonic()
+        self._features[frame_index] = bgr_to_lab_u8(frame_bgr_u8)
+        self.stage_seconds["region"] += time.monotonic() - t0
+
+    # -- dense results ingestion -----------------------------------------
+
+    def process_frames(self, flush: bool, seg_frames: list) -> list:
+        """Feed dense-stage SegFrames; returns hierarchical SegFrames when a
+        chunk set completes (or on flush)."""
+        t0 = time.monotonic()
+        out = []
+        for sf in seg_frames:
+            if sf.hierarchy is not None and self._open_frames:
+                self._close_chunk()
+            self._open_frames.append(sf)
+            out += self._maybe_process_set(False)
+        if flush:
+            if self._open_frames:
+                self._close_chunk()
+            out += self._maybe_process_set(True)
+        self.stage_seconds["region"] += time.monotonic() - t0
+        return out
+
+    # -- chunk bookkeeping ------------------------------------------------
+
+    def _close_chunk(self):
+        frames = self._open_frames
+        self._open_frames = []
+        hier = frames[0].hierarchy[0]
+        chunk = _ChunkData(
+            frames=frames, gids=hier.ids.astype(np.int64),
+            sizes=hier.sizes, start_frames=hier.start_frames,
+            end_frames=hier.end_frames, neighbor_pairs=hier.neighbor_pairs)
+        self._accumulate_chunk(chunk)
+        self._chunks.append(chunk)
+
+    def _accumulate_chunk(self, chunk: _ChunkData):
+        """Histogram accumulation for one chunk, cached on the host."""
+        tc = len(chunk.frames)
+        rc = len(chunk.gids)
+        rcap = _next_pow2(rc + 1)
+        if rcap * self.num_color_bins >= 2 ** 31:
+            raise ValueError(
+                f"chunk has {rc} over-segmented regions; flat histogram "
+                f"keys would overflow int32 (rcap {rcap} * "
+                f"{self.num_color_bins} bins)")
+        h, w = self.frame_height, self.frame_width
+        labels = np.empty((tc, h, w), np.int32)
+        lab_u8 = np.empty((tc, h, w, 3), np.uint8)
+        for i, sf in enumerate(chunk.frames):
+            idx = np.searchsorted(chunk.gids, sf.region_ids)
+            intervals = np.stack([sf.ys, sf.lxs, sf.rxs], axis=1)
+            labels[i] = rasterize_ids(idx, sf.interval_counts, intervals,
+                                      h, w)
+            lab_u8[i] = self._features[sf.frame_index]
+
+        lum, cb = self.options.luminance_bins, self.options.color_bins
+        nat = native.accumulate_lab_hist(labels, lab_u8, rcap, lum, cb)
+        if nat is not None:
+            chunk.hist = np.ascontiguousarray(nat[0, :rc])
+        else:
+            hist = _accumulate_all(
+                torch.as_tensor(labels, device=self.device),
+                torch.as_tensor(lab_u8, device=self.device), rcap, lum, cb)
+            chunk.hist = hist[:rc].cpu().numpy()
+        for sf in chunk.frames:
+            self._features.pop(sf.frame_index, None)
+
+    # -- chunk-set processing ---------------------------------------------
+
+    def _maybe_process_set(self, flush: bool) -> list:
+        out = []
+        while len(self._chunks) >= self.options.chunk_set_size:
+            out += self._process_set(self._chunks[:self.options.chunk_set_size],
+                                     emit_all=False)
+            keep = self.options.chunk_set_overlap
+            self._chunks = self._chunks[self.options.chunk_set_size - keep:]
+        if flush and self._chunks:
+            out += self._process_set(self._chunks, emit_all=True)
+            self._chunks = []
+        return out
+
+    def _process_set(self, chunks: list[_ChunkData], emit_all: bool) -> list:
+        opts = self.options
+        all_gids = np.unique(np.concatenate([c.gids for c in chunks]))
+        r = len(all_gids)
+        rcap = _next_pow2(r + 1)
+        sizes = np.zeros(rcap, np.float32)
+        start_f = np.full(r, np.iinfo(np.int32).max, np.int64)
+        end_f = np.full(r, -1, np.int64)
+        hist = np.zeros((rcap, self.num_color_bins), np.float32)
+
+        pair_list = []
+        for c in chunks:
+            idx = np.searchsorted(all_gids, c.gids)
+            np.add.at(sizes, idx, c.sizes.astype(np.float32))
+            np.minimum.at(start_f, idx, c.start_frames)
+            np.maximum.at(end_f, idx, c.end_frames)
+            hist[idx] += c.hist.astype(np.float32)
+            if len(c.neighbor_pairs):
+                pair_list.append(np.searchsorted(all_gids, c.neighbor_pairs))
+        if pair_list:
+            pairs = np.unique(np.concatenate(pair_list), axis=0)
+        else:
+            pairs = np.zeros((0, 2), np.int64)
+        ecap = _next_pow2(max(len(pairs), 1))
+        edges = np.zeros((ecap, 2), np.int32)
+        edges[:len(pairs)] = pairs
+
+        # Counterpart constraints from the previous set's overlap chunks.
+        constraints = None
+        if self._prev_assign:
+            constraints = []
+            for pg, pid in self._prev_assign:
+                carr = np.full(rcap, -1, np.int32)
+                if len(pg):
+                    pos = np.searchsorted(pg, all_gids)
+                    pos_c = np.minimum(pos, len(pg) - 1)
+                    has = pg[pos_c] == all_gids
+                    if has.any():
+                        hidx = np.flatnonzero(has)
+                        _, inv = np.unique(pid[pos_c[hidx]],
+                                           return_inverse=True)
+                        carr[hidx] = inv.astype(np.int32)
+                constraints.append(carr)
+
+        levels_raw = agglomeration.agglomerate(
+            hist, np.zeros((0, rcap, opts.flow_bins), np.float32),
+            np.zeros((0, rcap), np.float32), sizes, edges, r,
+            min_region_num=opts.min_region_num,
+            max_region_num=opts.max_region_num,
+            cutoff_fraction=opts.level_cutoff_fraction,
+            penalizer=opts.small_region_penalizer, use_flow=False,
+            constraints=constraints, reeval_cap=opts.agglo_reeval_cap,
+            max_subrounds=opts.agglo_subrounds, device=self.device)
+        if not levels_raw:
+            levels_raw = [np.arange(rcap, dtype=np.int32)]
+
+        level_ids = []
+        for lab in levels_raw:
+            ids = np.full(rcap, np.iinfo(np.int64).max, np.int64)
+            np.minimum.at(ids, lab[:r], all_gids)
+            level_ids.append(ids)
+        level_ids = self._inherit_ids(levels_raw, level_ids, all_gids,
+                                      sizes, r)
+        hierarchy = self._build_hierarchy(levels_raw, level_ids, r, all_gids,
+                                          sizes, start_f, end_f, pairs)
+
+        keep = 0 if emit_all else opts.chunk_set_overlap
+        if keep:
+            ov_gids = np.unique(np.concatenate(
+                [c.gids for c in chunks[-keep:]]))
+            pos = np.searchsorted(all_gids, ov_gids)
+            self._prev_assign = [
+                (ov_gids, level_ids[lv][levels_raw[lv][pos]])
+                for lv in range(len(levels_raw))]
+        else:
+            self._prev_assign = []
+
+        n_emit_chunks = (len(chunks) if emit_all
+                         else len(chunks) - opts.chunk_set_overlap)
+        out_frames = [sf for c in chunks[:n_emit_chunks] for sf in c.frames]
+        lab0 = levels_raw[0]
+        ids0 = level_ids[0]
+        results = []
+        first_idx = out_frames[0].frame_index
+        for k, sf in enumerate(out_frames):
+            idx = np.searchsorted(all_gids, sf.region_ids)
+            draw = ids0[lab0[idx]]
+            intervals = np.stack([sf.ys, sf.lxs, sf.rxs], axis=1)
+            img = rasterize_ids(draw, sf.interval_counts, intervals,
+                                self.frame_height, self.frame_width)
+            rids, counts, ys, lxs, rxs = rle.frame_rle(img)
+            results.append(SegFrame(
+                frame_width=self.frame_width,
+                frame_height=self.frame_height,
+                region_ids=rids, interval_counts=counts,
+                ys=ys, lxs=lxs, rxs=rxs,
+                moments=rle.shape_moments(counts, ys, lxs, rxs),
+                chunk_size=len(out_frames), overlap_start=len(out_frames),
+                chunk_id=self._set_id,
+                hierarchy_frame_idx=first_idx,
+                hierarchy=hierarchy if k == 0 else None,
+                frame_index=sf.frame_index))
+        self._set_id += 1
+        return results
+
+    def _inherit_ids(self, levels_raw, level_ids, all_gids, sizes, r):
+        """Carry hierarchy ids across chunk sets (see the JAX package): a
+        group inherits a previous-set id X only when the region with gid X
+        is one of its members; the largest carried size wins."""
+        if not self._prev_assign:
+            return level_ids
+        out = []
+        for lv, lab in enumerate(levels_raw):
+            ids = level_ids[lv]
+            if lv >= len(self._prev_assign):
+                out.append(ids)
+                continue
+            pg, pid = self._prev_assign[lv]
+            pos = np.searchsorted(pg, all_gids)
+            pos_c = np.minimum(pos, len(pg) - 1)
+            has = (len(pg) > 0) & (pg[pos_c] == all_gids)
+            mi = np.flatnonzero(has)
+            if not len(mi):
+                out.append(ids)
+                continue
+            roots_m = lab[mi]
+            prev_m = pid[pos_c[mi]]
+            w_m = sizes[mi]
+            order = np.lexsort((prev_m, roots_m))
+            rk, pk, wk = roots_m[order], prev_m[order], w_m[order]
+            new = np.ones(len(rk), bool)
+            new[1:] = (rk[1:] != rk[:-1]) | (pk[1:] != pk[:-1])
+            starts = np.flatnonzero(new)
+            wsum = np.add.reduceat(wk, starts)
+            g_root, g_prev = rk[starts], pk[starts]
+            xpos = np.searchsorted(all_gids, g_prev)
+            xpos_c = np.minimum(xpos, r - 1)
+            xin = all_gids[xpos_c] == g_prev
+            xok = xin & (lab[xpos_c] == g_root)
+            g_root, g_prev, wsum = g_root[xok], g_prev[xok], wsum[xok]
+            if len(g_root):
+                order2 = np.lexsort((-wsum, g_root))
+                first = np.ones(len(order2), bool)
+                rr = g_root[order2]
+                first[1:] = rr[1:] != rr[:-1]
+                sel = order2[first]
+                ids = ids.copy()
+                ids[g_root[sel]] = g_prev[sel]
+            out.append(ids)
+        return out
+
+    def _build_hierarchy(self, levels_raw, level_ids, r, all_gids, sizes,
+                         start_f, end_f, pairs):
+        """HierarchyLevelData per level: level 0 = the cut regions, upper
+        levels with parent/child links."""
+        out = []
+        for lv, lab in enumerate(levels_raw):
+            roots = np.unique(lab[:r])
+            ids = level_ids[lv][roots]
+            order = np.argsort(ids)
+            roots = roots[order]
+            ids = ids[order]
+            lsizes = np.zeros(len(lab), np.float64)
+            np.add.at(lsizes, lab[:r], sizes[:r])
+            lstart = np.full(len(lab), np.iinfo(np.int32).max, np.int64)
+            lend = np.full(len(lab), -1, np.int64)
+            np.minimum.at(lstart, lab[:r], start_f)
+            np.maximum.at(lend, lab[:r], end_f)
+            if len(pairs):
+                lp = level_ids[lv][lab[pairs]]
+                lp = np.sort(lp, axis=1)
+                lp = np.unique(lp[lp[:, 0] != lp[:, 1]], axis=0)
+            else:
+                lp = np.zeros((0, 2), np.int64)
+            parent_ids = None
+            if lv + 1 < len(levels_raw):
+                parent_ids = level_ids[lv + 1][levels_raw[lv + 1][roots]]
+            child_pairs = None
+            if lv > 0:
+                prev_roots = np.unique(levels_raw[lv - 1][:r])
+                cp_parent = level_ids[lv][lab[prev_roots]]
+                cp_child = level_ids[lv - 1][prev_roots]
+                child_pairs = np.stack([cp_parent, cp_child], axis=1)
+            out.append(HierarchyLevelData(
+                ids=ids, sizes=lsizes[roots].astype(np.int64),
+                start_frames=lstart[roots], end_frames=lend[roots],
+                neighbor_pairs=lp, parent_ids=parent_ids,
+                child_pairs=child_pairs))
+        return out
