@@ -4,14 +4,24 @@
 
 Phases (each prints one line; any failure exits non-zero):
  1. environment: torch / CUDA versions, card name, power limit;
- 2. build: both hand-written kernels from video_segment_tpu_torch/csrc
-    (nvcc, sm_90a) and the native host helpers (g++);
+ 2. build: the four hand-written kernels from video_segment_tpu_torch/csrc
+    (one nvcc each, sm_90a, all started together) and the native host
+    helpers (g++);
  3. K1 tile_felzenszwalb vs its plain PyTorch version on the card;
  4. K2 tile_reduce_min vs its plain PyTorch version on the card;
  5. the main path: segment_frames(use_flow=False, device="cuda") over a
     seeded 60-frame 272x480 synthetic clip (bench config 2's geometry),
-    with launch counts proving both kernels ran;
- 6. the dense stage on the card vs the same port on the CPU (boundary F).
+    with launch counts proving K1 and K2 ran;
+ 6. the dense stage on the card vs the same port on the CPU (boundary F);
+ 7. K4 tile_presegment vs its plain version on a (21,272,480) chunk;
+ 8. K3 tile_table_rounds vs its plain version on quantized random tables
+    and on the first gated level of a real fine-preseg 272x480 chunk;
+ 9. the flood path: segment_frames with preseg_mode="flood" over 41
+    frames (3 chunk solves), launch counts proving K4 and K2 ran;
+10. the supertile path: SegmentStream(DenseSegmentation(solver_params=
+    fine presegs + 3 K3 levels), RegionSegmentation) over 41 frames,
+    launch counts proving K1, K2 and K3 ran;
+11. the flood and supertile dense stages, card vs CPU (boundary F).
 Then a JSON line of per-kernel results, the card's name and power limit
 from nvidia-smi, and the final {"ok": true, ...} line.
 """
@@ -28,6 +38,8 @@ import torch
 
 H, W = 272, 480
 N_FRAMES = 60
+N_PATH_FRAMES = 41   # the flood and supertile paths: 3 chunk solves
+KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table")
 
 
 def log(phase: str, msg: str) -> None:
@@ -137,6 +149,112 @@ def rasterize(frames_out) -> np.ndarray:
         sf.frame_width) for sf in frames_out])
 
 
+def check_stream(out, stream, n_frames: int) -> list:
+    """The output checks of a full-pipeline run: ordered frames, full
+    coverage, ascending ids, parent links, the protocol's chunk-solve
+    count.  Returns the SegFrames that carry a chunk set's hierarchy."""
+    n_solves = expected_chunk_solves(n_frames, 20)
+    if [sf.frame_index for sf in out] != list(range(n_frames)):
+        raise AssertionError("frames missing or out of order")
+    img = rasterize(out)
+    if (img < 0).any():
+        raise AssertionError("unlabelled pixels in the output")
+    for sf in out:
+        if not np.all(np.diff(sf.region_ids) > 0):
+            raise AssertionError(f"region ids not ascending, frame "
+                                 f"{sf.frame_index}")
+    sets = [sf for sf in out if sf.hierarchy is not None]
+    if not sets:
+        raise AssertionError("no hierarchy emitted")
+    for sf in sets:
+        hier = sf.hierarchy
+        if len(hier) < 2:
+            raise AssertionError(f"set at frame {sf.frame_index}: "
+                                 f"{len(hier)} hierarchy levels")
+        for lo, hi in zip(hier, hier[1:]):
+            if lo.parent_ids is None or not np.isin(lo.parent_ids,
+                                                    hi.ids).all():
+                raise AssertionError("parent links point outside the next "
+                                     "level")
+        if not np.isin(sf.region_ids, hier[0].ids).all():
+            raise AssertionError("frame regions missing from level 0")
+    if len(stream.solve_diag) != n_solves:
+        raise AssertionError(f"{len(stream.solve_diag)} chunk solves, "
+                             f"protocol says {n_solves}")
+    return sets
+
+
+def reset_launches(*wrappers) -> None:
+    for fn in wrappers:
+        fn.launches = 0
+
+
+def run_stream(stream, dev) -> tuple:
+    """Drain a SegmentStream on the card: (frames, wall s, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    out = list(stream)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0, torch.cuda.max_memory_allocated(dev)
+
+
+def path_summary(out, stream, wall, peak, sets) -> str:
+    stages = {k: round(v, 3) for k, v in stream.stage_seconds.items()}
+    rounds = [int(d[:, 1].sum()) for d in stream.solve_diag]
+    return (f"{len(out)} frames {W}x{H} in {wall:.2f}s = "
+            f"{len(out) / wall:.3f} fps; stage seconds {stages}; chunk solves "
+            f"{len(stream.solve_diag)} (merge rounds {rounds}; live regions "
+            f"after each level {[d[:, 2].tolist() for d in stream.solve_diag]}"
+            f"); peak device memory {peak / 2**20:.1f} MiB; regions per level "
+            f"{[[len(lv.ids) for lv in sf.hierarchy] for sf in sets]}")
+
+
+def dense_level0(frames, options, params, device) -> np.ndarray:
+    """Level-0 label images of the dense stage (one flush chunk)."""
+    from video_segment_tpu_torch.core import dense
+    ds = dense.DenseSegmentation(options, W, H, solver_params=params,
+                                 device=device)
+    res = []
+    for fr in frames:
+        res += ds.process_frame(False, fr)
+    res += ds.process_frame(True)
+    return rasterize(res)
+
+
+def dense_card_vs_cpu(frames, options, params=None) -> tuple:
+    """The dense stage on the card and on the CPU: (boundary F, regions
+    per device, the card's level-0 images)."""
+    level0 = {name: dense_level0(frames, options, params, name)
+              for name in ("cuda", "cpu")}
+    fm = boundary_f(level0["cuda"], level0["cpu"])
+    return (fm, {k: int(len(np.unique(v))) for k, v in level0.items()},
+            level0["cuda"])
+
+
+def quantized_tables(rng, n, sr, k):
+    """Random K3 inputs whose statistics are exact in float32 (colours
+    multiples of 1/64, integer sizes), identity labels."""
+    s = sr * 128
+    shape = (n, sr, 128)
+    size = rng.integers(1, 5, shape).astype(np.float32)
+    cols = [rng.integers(0, 65, shape).astype(np.float32) / 64.0 * size
+            for _ in range(3)]
+    fin = np.where(rng.random(shape) < 0.2, rng.integers(0, 256, shape),
+                   2048).astype(np.int32)
+    blocked = (rng.random(shape) < 0.05).astype(np.int32)
+    ptn = rng.integers(0, s, (n, k, sr, 128))
+    bkt = rng.integers(0, 300, (n, k, sr, 128))
+    edges = np.where(rng.random((n, k, sr, 128)) < 0.3, 2 ** 31 - 1,
+                     (bkt << 12) | ptn).astype(np.int32)
+    labr = np.broadcast_to(np.arange(sr, dtype=np.int32)[None, :, None],
+                           shape)
+    labc = np.broadcast_to(np.arange(128, dtype=np.int32)[None, None],
+                           shape)
+    return dict(labr=labr, labc=labc, size=size, c0=cols[0], c1=cols[1],
+                c2=cols[2], fin=fin, blocked=blocked, edges=edges)
+
+
 def main() -> int:
     # -- 1. environment ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -152,16 +270,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from video_segment_tpu_torch import _build
     from video_segment_tpu_torch.ops import tile_extract as te
     from video_segment_tpu_torch.ops import tile_felz as tf
+    from video_segment_tpu_torch.ops import tile_preseg as tp
+    from video_segment_tpu_torch.ops import tile_table as tt
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.monotonic()
-    for name in ("tile_felz", "tile_extract"):
-        _build.load(name)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))
+    for name in KERNELS:
         regs = [ln.strip() for ln in _build.build_info[name]["log"]
-                .splitlines() if "registers" in ln or "spill" in ln]
+                .splitlines() if "registers" in ln or "spill" in ln
+                or "smem" in ln]
         log("build", f"{name}: {_build.build_info[name]['seconds']:.2f}s "
             f"{' | '.join(regs)}")
     from video_segment_tpu_torch.core import region
@@ -246,33 +370,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated(dev)
 
     n_solves = expected_chunk_solves(N_FRAMES, 20)
-    if [sf.frame_index for sf in out] != list(range(N_FRAMES)):
-        raise AssertionError("frames missing or out of order")
-    img = rasterize(out)
-    if (img < 0).any():
-        raise AssertionError("unlabelled pixels in the output")
-    for sf in out:
-        if not np.all(np.diff(sf.region_ids) > 0):
-            raise AssertionError(f"region ids not ascending, frame "
-                                 f"{sf.frame_index}")
-    sets = [sf for sf in out if sf.hierarchy is not None]
-    if not sets:
-        raise AssertionError("no hierarchy emitted")
-    for sf in sets:
-        hier = sf.hierarchy
-        if len(hier) < 2:
-            raise AssertionError(f"set at frame {sf.frame_index}: "
-                                 f"{len(hier)} hierarchy levels")
-        for lo, hi in zip(hier, hier[1:]):
-            if lo.parent_ids is None or not np.isin(lo.parent_ids,
-                                                    hi.ids).all():
-                raise AssertionError("parent links point outside the next "
-                                     "level")
-        if not np.isin(sf.region_ids, hier[0].ids).all():
-            raise AssertionError("frame regions missing from level 0")
-    if len(stream.solve_diag) != n_solves:
-        raise AssertionError(f"{len(stream.solve_diag)} chunk solves, "
-                             f"protocol says {n_solves}")
+    sets = check_stream(out, stream, N_FRAMES)
     if k1_launches != N_FRAMES or k2_launches != n_solves:
         raise AssertionError(f"launches K1 {k1_launches} (want {N_FRAMES}),"
                              f" K2 {k2_launches} (want {n_solves})")
@@ -286,22 +384,141 @@ def main() -> int:
         f"launches K1 {k1_launches} K2 {k2_launches}")
 
     # -- 6. card vs CPU -----------------------------------------------------
-    from video_segment_tpu_torch.core import dense
-    level0 = {}
-    for name in ("cuda", "cpu"):
-        ds = dense.DenseSegmentation(api.DenseSegmentationOptions(), W, H,
-                                     device=name)
-        res = []
-        for fr in frames[:8]:
-            res += ds.process_frame(False, fr)
-        res += ds.process_frame(True)
-        level0[name] = rasterize(res)
-    fm = boundary_f(level0["cuda"], level0["cpu"])
-    n_reg = {k: int(len(np.unique(v))) for k, v in level0.items()}
+    fm, n_reg, _ = dense_card_vs_cpu(frames[:8],
+                                     api.DenseSegmentationOptions())
     log("cpu", f"8 frames, one flush chunk (t_solve 21): boundary F "
         f"{fm:.4f} (regions {n_reg})")
     if fm < 0.9:
         raise AssertionError(f"card vs CPU boundary F {fm:.4f} < 0.9")
+
+    # -- 7. K4 vs plain -----------------------------------------------------
+    from video_segment_tpu_torch.core import dense, region
+    opts = api.DenseSegmentationOptions()
+    vol21 = torch.stack([
+        dense._preprocess_u8(torch.as_tensor(fr, device=dev),
+                             opts.presmoothing) for fr in frames[:t_solve]])
+    thr = p.preseg_threshold
+    raw_k = tp.flood_kernel(vol21, thr, "l2", 48)
+    raw_p = tp.flood_plain(vol21, thr, "l2", 48)
+    k4_k = tp.tile_presegment(vol21, thr, "l2")
+    k4_p = tp.tile_presegment_plain(vol21, thr, "l2")
+    torch.cuda.synchronize()
+    if not (torch.equal(raw_k, raw_p) and torch.equal(k4_k, k4_p)):
+        raise AssertionError("K4 differs from its plain version")
+    k4_err = float((k4_k.long() - k4_p.long()).abs().max())
+    k4_ms = cuda_ms(lambda: tp.flood_kernel(vol21, thr, "l2", 48), 50)
+    k4_plain_ms = cuda_ms(lambda: tp.flood_plain(vol21, thr, "l2", 48), 5)
+    n_flood = int(torch.unique(k4_k).numel())
+    log("k4", f"(21,{H},{W}) raw roots and collapsed labels equal; "
+        f"{n_flood} regions ({n_flood / k4_k.numel():.3f} per pixel); kernel "
+        f"{k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms (before the pointer "
+        "jump)")
+
+    # -- 8. K3 vs plain -----------------------------------------------------
+    def k3_pair(kw):
+        got = tt.tile_table_rounds(**kw)
+        want = tt.tile_table_rounds_plain(**kw)
+        torch.cuda.synchronize()
+        err = max(float((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        if err:
+            raise AssertionError(f"K3 differs from its plain version "
+                                 f"(max abs label err {err})")
+        moved = int(((got[0] * 128 + got[1]) != (kw["labr"] * 128
+                                                  + kw["labc"])).sum())
+        return err, moved
+
+    rng = np.random.default_rng(13)
+    for theta, mthr, blocked in ((64, 0.08, True), (2047, 0.05, False)):
+        q = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in quantized_tables(rng, 64, 32, 12).items()}
+        if not blocked:
+            q["blocked"].zero_()
+        _, moved = k3_pair(dict(q, theta=theta, rounds=5,
+                                merge_threshold=mthr,
+                                force_merge_weight=0.001, metric="l2"))
+        log("k3", f"quantized (64,12,32,128), theta {theta}: equal; "
+            f"{moved} slots moved")
+    pm_kw = dict(k1_kw, pair_merge=True)
+    lab_f, fin_f, st_f = tf.tile_felzenszwalb(vol21, **pm_kw)
+    n_seeds = int((lab_f.reshape(-1) == torch.arange(
+        lab_f.numel(), device=dev)).sum())
+    st_params = ov.OversegParams(
+        preseg_pair_merge=True, st_levels=3, table_slots=min(
+            -(-(n_seeds + 1024) // 16384) * 16384, lab_f.numel()))
+    k3_kw = ov.supertile_level_inputs(vol21, lab_f, fin_f, st_f, st_params)
+    k3_err, moved = k3_pair(k3_kw)
+    k3_ms = cuda_ms(lambda: tt.tile_table_rounds(**k3_kw), 20)
+    k3_plain_ms = cuda_ms(lambda: tt.tile_table_rounds_plain(**k3_kw), 3)
+    n_sup, k_e = k3_kw["edges"].shape[:2]
+    placed = int((k3_kw["size"] > 0).sum())
+    log("k3", f"real chunk, level 0: {n_seeds} pair-merge seeds ({placed} "
+        f"placed), {n_sup} supertiles x {k3_kw['labr'].shape[1] * 128} "
+        f"slots, K={k_e}: "
+        f"equal; {moved} slots moved; kernel {k3_ms:.4f} ms, plain "
+        f"{k3_plain_ms:.4f} ms")
+    del vol21, raw_k, raw_p, k4_k, k4_p, k3_kw, lab_f, fin_f, st_f
+
+    # -- 9. flood path ------------------------------------------------------
+    frames_p = frames[:N_PATH_FRAMES]
+    n_solves_p = expected_chunk_solves(N_PATH_FRAMES, 20)
+    reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min,
+                   tp.tile_presegment, tt.tile_table_rounds)
+    stream = api.segment_frames(
+        iter(frames_p), W, H, use_flow=False, device="cuda",
+        dense_options=api.DenseSegmentationOptions(preseg_mode="flood"))
+    out, wall, peak = run_stream(stream, dev)
+    counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
+              tp.tile_presegment.launches, tt.tile_table_rounds.launches)
+    sets = check_stream(out, stream, N_PATH_FRAMES)
+    if counts != (0, n_solves_p, n_solves_p, 0):
+        raise AssertionError(f"flood path launches K1/K2/K4/K3 {counts}, "
+                             f"want (0, {n_solves_p}, {n_solves_p}, 0)")
+    k4_launches = counts[2]
+    log("flood", path_summary(out, stream, wall, peak, sets)
+        + f"; launches K4 {counts[2]} K2 {counts[1]}")
+
+    # -- 10. supertile path -------------------------------------------------
+    st_solver = ov.OversegParams(preseg_pair_merge=True, st_levels=3)
+    reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min,
+                   tp.tile_presegment, tt.tile_table_rounds)
+    stream = api.SegmentStream(
+        iter(frames_p),
+        dense.DenseSegmentation(api.DenseSegmentationOptions(), W, H,
+                                solver_params=st_solver, device="cuda"),
+        region.RegionSegmentation(api.RegionSegmentationOptions(
+            use_flow=False), W, H, device="cuda"))
+    out, wall, peak = run_stream(stream, dev)
+    counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
+              tp.tile_presegment.launches, tt.tile_table_rounds.launches)
+    sets = check_stream(out, stream, N_PATH_FRAMES)
+    want = (N_PATH_FRAMES, n_solves_p, 0, 3 * n_solves_p)
+    if counts != want:
+        raise AssertionError(f"supertile path launches K1/K2/K4/K3 "
+                             f"{counts}, want {want}")
+    k3_launches = counts[3]
+    log("supertile", path_summary(out, stream, wall, peak, sets)
+        + f"; launches K1 {counts[0]} K2 {counts[1]} K3 {counts[3]}")
+
+    # -- 11. new paths, card vs CPU -----------------------------------------
+    for name, options, params in (
+            ("flood", api.DenseSegmentationOptions(preseg_mode="flood"),
+             None),
+            ("supertile", api.DenseSegmentationOptions(), st_solver)):
+        t0 = time.monotonic()
+        fm, n_reg, card = dense_card_vs_cpu(frames[:8], options, params)
+        log("cpu", f"{name}: 8 frames, one flush chunk: boundary F "
+            f"{fm:.4f} (regions {n_reg}; {time.monotonic() - t0:.1f}s)")
+        if fm < 0.9:
+            raise AssertionError(f"{name}: card vs CPU boundary F "
+                                 f"{fm:.4f} < 0.9")
+    # How far the K3 path departs from the masked rounds at full size
+    # (seeds beyond st_slots, recompaction inside the gated levels).
+    masked = dense_level0(frames[:8], api.DenseSegmentationOptions(),
+                          st_solver._replace(st_kernel=False), "cuda")
+    log("cpu", f"supertile on the card, K3 path vs masked rounds: boundary "
+        f"F {boundary_f(card, masked):.4f} (regions "
+        f"{len(np.unique(card))} vs {len(np.unique(masked))})")
 
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -319,6 +536,16 @@ def main() -> int:
              replaces="video_segment_tpu/ops/tile_extract.py:102",
              launches=k2_launches, max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms),
+        dict(name="tile_presegment", route="cuda",
+             source="video_segment_tpu_torch/csrc/tile_preseg.cu",
+             replaces="video_segment_tpu/ops/tile_preseg.py:98",
+             launches=k4_launches, max_abs_err=k4_err, ms=k4_ms,
+             plain_ms=k4_plain_ms),
+        dict(name="tile_table_rounds", route="cuda",
+             source="video_segment_tpu_torch/csrc/tile_table.cu",
+             replaces="video_segment_tpu/ops/tile_table.py:358",
+             launches=k3_launches, max_abs_err=k3_err, ms=k3_ms,
+             plain_ms=k3_plain_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,10 @@
 """The port runs with jax, cv2 and protobuf unimportable.
 
 A subprocess blocks the three (`sys.modules[name] = None` makes their
-import raise), imports the port and runs a tiny flow-off
-`segment_frames(..., device="cpu")` end to end.
+import raise), imports the port and its kernel modules, runs a tiny
+flow-off `segment_frames(..., device="cpu")` end to end, and runs the
+dense stage with the flood pre-segmentation (K4) and with K3 supertile
+levels.
 """
 
 import os
@@ -27,6 +29,9 @@ SCRIPT = textwrap.dedent("""
     from video_segment_tpu.core.options import (DenseSegmentationOptions,
                                                 RegionSegmentationOptions)
     from video_segment_tpu_torch.api import segment_frames
+    from video_segment_tpu_torch.core import dense, oversegmentation as ov
+    from video_segment_tpu_torch.ops import (tile_extract, tile_felz,
+                                             tile_preseg, tile_table)
 
     rng = np.random.default_rng(0)
     frames = []
@@ -46,6 +51,19 @@ SCRIPT = textwrap.dedent("""
     assert any(sf.hierarchy for sf in out)
     for sf in out:
         assert sf.interval_counts.sum() > 0
+    for opts, params in (
+            (DenseSegmentationOptions(chunk_size=3, preseg_mode="flood"),
+             None),
+            (DenseSegmentationOptions(chunk_size=3),
+             ov.OversegParams(preseg_pair_merge=True, st_levels=2, st_h=8,
+                              st_w=128))):
+        ds = dense.DenseSegmentation(opts, 128, 16, solver_params=params,
+                                     device="cpu")
+        res = []
+        for fr in frames:
+            res += ds.process_frame(False, fr)
+        res += ds.process_frame(True)
+        assert [sf.frame_index for sf in res] == list(range(7))
     loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and any(m == b or m.startswith(b + ".")
                             for b in BLOCKED))

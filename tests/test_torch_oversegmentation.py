@@ -134,7 +134,7 @@ def test_oversegment_knobs_match_jax(knob):
 
 def test_scope_raises():
     vol = torch.zeros((2, 8, 128, 3))
-    for p in (tov.OversegParams(bands=2), tov.OversegParams(st_levels=1),
+    for p in (tov.OversegParams(bands=2),
               tov.OversegParams(two_stage=True),
               tov.OversegParams(gradient_trait=True),
               tov.OversegParams(descriptor="color_mean_variance"),
@@ -149,3 +149,123 @@ def test_table_phase_caps_match():
     for n in (16385, 65537, 200001, 1 << 20):
         assert tov._table_phase_caps(n) == jov._table_phase_caps(n)
         assert tov._pack_spec(n) == jov._pack_spec(n)
+
+
+# ---------------------------------------------------------------------------
+# Supertile-gated early levels (st_levels): K3 path and masked rounds.
+
+
+def _st_volume(constrained=False):
+    """Flat 8x16 patches of colours quantized to multiples of 1/32 (the
+    JAX package's test_st_kernel_matches_masked_rounds input): every
+    statistic is exact in float32 and float64, so the K3 path's
+    re-aggregation from seeds cannot flip a merge test."""
+    rng = np.random.default_rng(5)
+    t, h, w = 3, 32, 256
+    base = (rng.integers(0, 33, (t, h // 8, w // 16, 3))
+            .astype(np.float32) / 32.0)
+    vol = np.repeat(np.repeat(base, 8, 1), 16, 2)
+    kw = {}
+    if constrained:
+        constr = np.full((t, h, w), -1, np.int32)
+        constr[0] = (np.arange(w)[None, :] // 64).repeat(h, 0)
+        frozen = np.zeros((t, h, w), bool)
+        frozen[0] = True
+        kw = dict(constraints=constr, frozen=frozen)
+    return vol, kw
+
+
+ST_COMMON = dict(st_levels=3, st_h=16, st_w=128, st_slots=2048,
+                 min_region_size=0)
+
+
+@pytest.mark.parametrize("constrained", [False, True],
+                         ids=["free", "constrained"])
+def test_supertile_levels_match_jax_masked_rounds(constrained):
+    """The port's supertile solve, on both paths, equals the JAX masked
+    rounds (st_kernel=False) exactly."""
+    vol, kw = _st_volume(constrained)
+    n_pix = vol[..., 0].size
+    pj = jov.OversegParams(table_slots=n_pix, st_kernel=False, **ST_COMMON)
+    want = jov.oversegment(jnp.asarray(vol), params=pj,
+                           **{k: jnp.asarray(v) for k, v in kw.items()})
+    lab_w = np.asarray(want.label)
+    assert len(np.unique(lab_w)) < n_pix // 4   # merging happened
+    for st_kernel in (True, False):
+        assert tov._use_st_kernel(tov.params_from_jax(pj)._replace(
+            st_kernel=st_kernel)) == st_kernel
+        got = tov.oversegment(
+            torch.from_numpy(vol),
+            params=tov.params_from_jax(pj)._replace(st_kernel=st_kernel),
+            **{k: torch.from_numpy(v) for k, v in kw.items()})
+        for field in ("label", "constr", "size", "orig"):
+            np.testing.assert_array_equal(
+                getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+                err_msg=f"{field} (st_kernel={st_kernel})")
+
+
+def test_supertile_r3_knob_takes_masked_rounds():
+    """pair_merge is not carried by K3: with it, st_kernel=True takes the
+    masked rounds and equals JAX's masked rounds with pair_merge."""
+    vol, _ = _st_volume()
+    n_pix = vol[..., 0].size
+    pj = jov.OversegParams(table_slots=n_pix, st_kernel=False,
+                           pair_merge=True, **ST_COMMON)
+    pt = tov.params_from_jax(pj)._replace(st_kernel=True)
+    assert not tov._use_st_kernel(pt)
+    want = jov.oversegment(jnp.asarray(vol), params=pj)
+    got = tov.oversegment(torch.from_numpy(vol), params=pt)
+    np.testing.assert_array_equal(got.label.numpy(), np.asarray(want.label))
+
+
+@pytest.mark.parametrize("bad", [dict(st_slots=4224), dict(st_slots=1000),
+                                 dict(st_levels=9),
+                                 dict(st_levels=2, schedule=(4, 16))],
+                         ids=["slots_over_4096", "slots_not_128",
+                              "all_levels_gated", "short_schedule"])
+def test_supertile_r2_r4_raise(bad):
+    vol = torch.zeros((2, 8, 128, 3))
+    p = tov.OversegParams(**{"st_levels": 1, **bad})
+    with pytest.raises(ValueError):
+        tov.oversegment(vol, params=p)
+
+
+def test_sup_ids_match_jax():
+    params = jov.OversegParams(st_h=16, st_w=128)
+    orig = np.arange(0, 3 * 40 * 300, 7, dtype=np.int32)
+    want = np.asarray(jov._sup_ids_hw(jnp.asarray(orig), 40, 300, params))
+    got = tov._sup_ids_hw(torch.from_numpy(orig), 40, 300,
+                          tov.params_from_jax(params))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_supertile_blocked_plane_follows_current_constraints():
+    """K3's blocked plane is rebuilt from the state of each gated level
+    (read through the current roots): a region unconstrained by a level
+    end is free at the next gated level, as in the masked rounds."""
+    shape3 = (1, 8, 128)
+    params = tov.OversegParams(st_levels=1, st_h=8, st_w=128, st_slots=128)
+    nseg = 9                                   # 8 seeds + sink
+    orig = torch.tensor([0, 5, 9, 130, 300, 512, 700, 1000, 0],
+                        dtype=torch.int32)
+    size = torch.ones(nseg)
+    size[-1] = 0
+    ts = tov.SolverState(
+        label=torch.tensor([0, 1, 2, 2, 4, 5, 6, 7, 8], dtype=torch.int32),
+        csum=torch.zeros((nseg, 3)), size=size,
+        constr=torch.tensor([0, 1, 0, -1, -1, -1, -1, -1, -1],
+                            dtype=torch.int32),
+        fin=torch.full((nseg,), tov.NUM_BUCKETS, dtype=torch.int32),
+        frozen=torch.zeros(nseg, dtype=torch.bool))
+    tab = torch.full((26, nseg), tov.I32MAX, dtype=torch.int32)
+    ptn, pbk = tov._topk_edges(tab, params.edge_topk)
+    st = tov._st_layout(ts, ptn, pbk, orig, shape3, params)
+    labr, labc, _, blocked = tov._st_level_planes(st, ts)
+    lab = (labr * 128 + labc).reshape(-1)[:8].tolist()
+    assert lab == [0, 1, 2, 2, 4, 5, 6, 7]     # slot 3 rooted at slot 2
+    assert blocked.reshape(-1)[:8].tolist() == [1, 1, 1, 1, 0, 0, 0, 0]
+    assert blocked.reshape(-1)[8:].eq(1).all()  # empty positions
+    ts = ts._replace(constr=torch.tensor([0, -1, -1, -1, -1, -1, -1, -1, -1],
+                                         dtype=torch.int32))
+    _, _, _, blocked = tov._st_level_planes(st, ts)
+    assert blocked.reshape(-1)[:8].tolist() == [1, 0, 0, 0, 0, 0, 0, 0]

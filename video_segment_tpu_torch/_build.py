@@ -28,7 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+# One lock per kernel, so that builds of different kernels overlap.
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build seconds (0.0 when cached), "log": ptxas output}
 build_info: dict[str, dict] = {}
@@ -47,8 +49,11 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`."""
+    """Build (if needed) and load `csrc/<name>.cu`.  Thread-safe; builds of
+    different kernels may run at once (one nvcc each)."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC, f"{name}.cu")

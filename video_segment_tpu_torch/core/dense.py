@@ -1,15 +1,17 @@
 """Streaming chunked dense over-segmentation stage (PyTorch port).
 
 Port of video_segment_tpu/core/dense.py: buffers preprocessed frames,
-runs the tile felz pre-solve (K1) per frame at ingest, solves each chunk
-with the edge-table solver, assigns globally consistent region ids across
-chunks and emits per-frame RLE results plus a level-0 hierarchy per chunk
-(chunk streaming protocol: see the JAX module docstring).
+pre-segments them tile-locally, solves each chunk with the edge-table
+solver, assigns globally consistent region ids across chunks and emits
+per-frame RLE results plus a level-0 hierarchy per chunk (chunk streaming
+protocol: see the JAX module docstring).
 
-Scope: one device, unbanded solves, felz pre-segmentation ("auto" means
-"felz" on every device, so CPU runs execute the algorithm the card runs),
-no optical flow.  Banded chunking, the mesh solve and the "flood"
-pre-segmentation (K4) raise NotImplementedError.  The host tail (N4 fix
+Pre-segmentation: "felz" runs the tile felz pre-solve (K1) per frame at
+ingest; "flood" runs the tile flood (K4) over each padded chunk volume
+when the chunk is solved.  "auto" means "felz" on every device, so CPU
+runs execute the algorithm the card runs (the JAX package picks "flood"
+off a TPU).  Scope: one device, unbanded solves, no optical flow; banded
+chunking and the mesh solve raise NotImplementedError.  The host tail (N4 fix
 result, compaction, connectedness, id assignment, RLE) reuses the JAX-free
 host modules of video_segment_tpu.
 """
@@ -27,7 +29,7 @@ from video_segment_tpu.core.options import DenseSegmentationOptions
 from video_segment_tpu.ops import rle
 from video_segment_tpu_torch import device as devmod
 from video_segment_tpu_torch.core import oversegmentation as ov
-from video_segment_tpu_torch.ops import filters, tile_felz
+from video_segment_tpu_torch.ops import filters, tile_felz, tile_preseg
 
 
 @dataclasses.dataclass
@@ -133,17 +135,18 @@ class DenseSegmentation:
             force_merge_weight=0.002 if options.color_distance == "l1"
             else 0.001)
         ov._check_scope(self._params, None)
-        if options.preseg_mode not in ("auto", "felz"):
-            raise NotImplementedError(
-                f"preseg_mode={options.preseg_mode!r} (the flood preseg, K4) "
-                "is not ported yet (ROADMAP.md, Queue 2)")
-        if self._params.table_divisor == ov.OversegParams().table_divisor:
+        if options.preseg_mode not in ("auto", "felz", "flood"):
+            raise ValueError(f"unknown preseg_mode {options.preseg_mode!r}")
+        self._preseg_mode = ("felz" if options.preseg_mode == "auto"
+                             else options.preseg_mode)
+        if (self._preseg_mode == "felz" and self._params.table_divisor
+                == ov.OversegParams().table_divisor):
             # The felz pre-solve collapses pixels enough for a tighter
             # region table; explicit caller-set divisors are respected.
             self._params = self._params._replace(table_divisor=16)
 
         self._buffer: list[torch.Tensor] = []   # smoothed (H,W,3)
-        self._preseg_buffer: list = []          # per-frame K1 results
+        self._preseg_buffer: list = []          # per-frame K1 results (felz)
         self._chunk_start = 0
         self._chunk_id = 0
         self._max_region_id = 0
@@ -167,7 +170,7 @@ class DenseSegmentation:
         planes), `max_region_id`, `chunk_start`, `chunk_id`,
         `num_output_frames`, and `buffer` (the buffered preprocessed
         (H,W,3) float32 frames, whose pre-segmentations are recomputed
-        here)."""
+        here in felz mode)."""
         self.join()
         self._overlap_gids = [np.asarray(g, np.int64)
                               for g in state["overlap_gids"]]
@@ -178,7 +181,8 @@ class DenseSegmentation:
         self._buffer = [torch.tensor(np.asarray(f, np.float32),
                                      device=self.device)
                         for f in state["buffer"]]
-        self._preseg_buffer = [self._preseg_frame(b) for b in self._buffer]
+        self._preseg_buffer = ([self._preseg_frame(b) for b in self._buffer]
+                               if self._preseg_mode == "felz" else [])
 
     # -- preprocessing ----------------------------------------------------
 
@@ -228,7 +232,8 @@ class DenseSegmentation:
         t0 = time.monotonic()
         img = self.preprocess(frame_bgr_u8)
         self._buffer.append(img)
-        self._preseg_buffer.append(self._preseg_frame(img))
+        if self._preseg_mode == "felz":
+            self._preseg_buffer.append(self._preseg_frame(img))
         self._stage_done("ingest_preseg", t0)
 
     def _chunk_ready(self, flush: bool) -> bool:
@@ -268,18 +273,28 @@ class DenseSegmentation:
         pad = t_solve - t
         vol = torch.stack(self._buffer + [self._buffer[-1]] * pad)
 
-        while len(self._preseg_buffer) < len(self._buffer):
-            k = len(self._preseg_buffer)
-            self._preseg_buffer.append(self._preseg_frame(self._buffer[k]))
-        per_frame = self._preseg_buffer[:t] + [self._preseg_buffer[t - 1]] * pad
-        offs = (torch.arange(t_solve, dtype=torch.int32, device=dev)
-                [:, None, None] * (h * w))
-        tile_init = torch.cat([lab for lab, _, _ in per_frame]) + offs
-        tile_fin = torch.cat([fin for _, fin, _ in per_frame])
-        tile_stats = tuple(torch.cat([st[i] for _, _, st in per_frame])
-                           for i in range(4))
-        if not self._params.carry_preseg_fin:
-            tile_fin = None
+        tile_fin = tile_stats = None
+        if self._preseg_mode == "felz":
+            while len(self._preseg_buffer) < len(self._buffer):
+                k = len(self._preseg_buffer)
+                self._preseg_buffer.append(
+                    self._preseg_frame(self._buffer[k]))
+            per_frame = (self._preseg_buffer[:t]
+                         + [self._preseg_buffer[t - 1]] * pad)
+            offs = (torch.arange(t_solve, dtype=torch.int32, device=dev)
+                    [:, None, None] * (h * w))
+            tile_init = torch.cat([lab for lab, _, _ in per_frame]) + offs
+            tile_fin = torch.cat([fin for _, fin, _ in per_frame])
+            tile_stats = tuple(torch.cat([st[i] for _, _, st in per_frame])
+                               for i in range(4))
+            if not self._params.carry_preseg_fin:
+                tile_fin = None
+        else:
+            # Tile flood (K4) over the whole padded chunk: tile-local
+            # regions of pixels within `preseg_threshold` of a neighbour.
+            tile_init = tile_preseg.tile_presegment(
+                vol, self._params.preseg_threshold,
+                self.options.color_distance)
 
         # The previous chunk's (possibly deferred) tail produces the
         # overlap constraint planes.

@@ -6,11 +6,17 @@ docstring for the semantics): ascending bucket-threshold schedule levels,
 Boruvka merge rounds to a fixed point over an O(regions) edge table, the
 mean-colour gate with the force-merge shortcut, level-end finalization /
 unconstraining, min-region-size forcing and the final constraint
-association.  Scope: the default edge-table solver (`bands=1`,
-`st_levels=0`, spatial + undisplaced temporal directions).  Flow-displaced
-edges, banded solves, supertile levels, two-stage solves, the gradient
-trait and non-default descriptors raise NotImplementedError; the v1 pixel
-solver (`edge_table=False`) is not ported.
+association.  Scope: the edge-table solver (`bands=1`, spatial +
+undisplaced temporal directions), with the supertile-gated early levels
+(`st_levels>0`) either as K3 launches (`ops/tile_table`, the default) or
+as masked global rounds (`st_kernel=False`).  The two admit the same
+merges; they differ only in the float order of the region statistics, in
+seeds beyond `st_slots` (unmerged in K3) and in a table recompaction that
+falls inside the gated levels (the masked rounds then see the shrunk
+table's top-K edges).  Flow-displaced edges, banded solves, two-stage
+solves, the gradient trait and non-default descriptors raise
+NotImplementedError; the v1 pixel solver (`edge_table=False`) is not
+ported.
 
 JAX's segment reductions become `scatter_reduce_` / `index_add_` into
 tensors pre-filled with the same empty-segment identities (INT32_MAX /
@@ -427,9 +433,16 @@ def _topk_edges(tab, k):
 
 
 def _table_round(ts: SolverState, ptn, pbk, theta, up, mode, nseg, sink,
-                 p: OversegParams):
+                 p: OversegParams, sup=None, st_on: bool = False):
     """One Boruvka round over the region edge table (see the JAX
-    `_table_round`; supertile gating is not ported)."""
+    `_table_round`).
+
+    With `sup` (per-slot supertile id) and `st_on` (a gated level, below
+    `p.st_levels`), regular merges are admitted only between FREE regions
+    whose roots lie in the same supertile: cross-supertile pairs and every
+    pair with a constrained side wait for level `st_levels`, where the
+    ungated rounds re-test them with the merged statistics.
+    """
     root = ts.label
     bits, bshift = _pack_spec(nseg)
     mean = ts.csum / torch.clamp(ts.size, min=1.0)[:, None]
@@ -457,6 +470,9 @@ def _table_round(ts: SolverState, ptn, pbk, theta, up, mode, nseg, sink,
     constr_same = (~either_free & (own_constr[:, None] == nb_constr)
                    & (dd <= sthr))
     adm_merge = (pbk <= theta) & (regular | constr_same)
+    if sup is not None and st_on:
+        adm_merge = (adm_merge & (_take(sup, own)[:, None] == _take(sup, a2))
+                     & (own_constr[:, None] < 0) & (nb_constr < 0))
     both_constr_diff = (~either_free) & (own_constr[:, None] != nb_constr)
     own_small = own_size < p.min_region_size
     adm_small = own_small[:, None] & ~both_constr_diff & (pbk <= theta)
@@ -732,10 +748,190 @@ def _recompact_table(ts, tab, o2n, fb_slot, orig_slot, new_cap: int):
     return ts2, tab2, o2n2, fb_slot2, orig2
 
 
+def _sup_ids_hw(orig, h, w, params: OversegParams):
+    """Per-slot supertile id (frame, st_h row band, st_w column band) from
+    the slot's original root voxel."""
+    n_sx = -(-w // params.st_w)
+    tt = orig // (h * w)
+    rem = orig % (h * w)
+    sid = ((tt * -(-h // params.st_h) + (rem // w) // params.st_h) * n_sx
+           + (rem % w) // params.st_w)
+    return torch.clamp(sid, max=I32MAX - 1)
+
+
+def _use_st_kernel(p: OversegParams) -> bool:
+    """Whether the gated levels run as K3 launches rather than masked
+    global rounds.  `st_kernel=None` means the kernel on every device.
+    The kernel carries neither pair cancellation nor per-round failure
+    scans nor interleaved min-size rounds, so those knobs take the masked
+    rounds (the kernel path must equal them)."""
+    if p.st_levels <= 0 or p.st_kernel is False:
+        return False
+    return not (p.pair_merge or p.fin_every_round or p.min_size_interleave)
+
+
+class _Supertiles(NamedTuple):
+    """Blocked layout of the table slots for the K3 levels."""
+    g2b: torch.Tensor       # (nseg,) blocked position per slot, -1 unplaced
+    b2g: torch.Tensor       # (n_sup*s_cap,) slot per position (sink: empty)
+    seeds: tuple            # (size, c0, c1, c2) blocked seed planes
+    edges: torch.Tensor     # (n_sup, K, SR, 128) same-supertile top-K edges
+    n_sup: int
+    s_cap: int
+
+
+def _st_layout(ts: SolverState, ptn, pbk, orig_slot, shape3,
+               params: OversegParams) -> _Supertiles:
+    """Block the fresh table (every row a seed) per supertile and build the
+    edge planes from the global per-slot top-K: only same-supertile pairs
+    with both ends placed stay; the rest wait for the global levels."""
+    from video_segment_tpu_torch.ops import tile_table as tt
+
+    t, h, w = shape3
+    nseg0 = ts.label.shape[0]
+    sink = nseg0 - 1
+    n_sup = t * -(-h // params.st_h) * -(-w // params.st_w)
+    s_cap = params.st_slots
+    sr = s_cap // tt.L
+    sup = _sup_ids_hw(orig_slot, h, w, params)
+    sup[sink] = n_sup
+    g2b, b2g = tt.blocked_layout(sup, n_sup, s_cap)
+    seed_size = _take(ts.size, b2g)
+    c_b = _take(ts.csum, b2g)
+    seeds = tuple(x.reshape(n_sup, sr, tt.L).contiguous()
+                  for x in (seed_size, c_b[:, 0], c_b[:, 1], c_b[:, 2]))
+
+    k_edges = ptn.shape[1]
+    pg = _take(g2b, torch.clamp(ptn, max=sink))
+    own_b = g2b[:, None]
+    same = ((ptn < I32MAX) & (pg >= 0) & (own_b >= 0)
+            & (pg // s_cap == own_b // s_cap))
+    packed = torch.where(
+        same, (torch.clamp(pbk, max=NUM_BUCKETS - 2) << tt.PBITS)
+        | (pg % s_cap), I32MAX)
+    dump = n_sup * s_cap
+    e_scatter = torch.full((dump + 1, k_edges), I32MAX, dtype=torch.int32,
+                           device=ptn.device)
+    e_scatter[torch.where(g2b >= 0, g2b, dump).long()] = packed
+    edges = e_scatter[:-1].reshape(n_sup, sr, tt.L, k_edges) \
+        .permute(0, 3, 1, 2).contiguous()
+    return _Supertiles(g2b, b2g, seeds, edges, n_sup, s_cap)
+
+
+def _st_level_planes(st: _Supertiles, ts: SolverState):
+    """K3's per-level planes from the current state: launch-time local
+    roots, region finalize levels, and the blocked plane, rebuilt from the
+    CURRENT constraint ids (a region that a level end unconstrained is
+    free at the next gated level, as in the masked rounds)."""
+    from video_segment_tpu_torch.ops import tile_table as tt
+
+    shape = (st.n_sup, st.s_cap // tt.L, tt.L)
+    pos = torch.arange(st.n_sup * st.s_cap, dtype=torch.int32,
+                       device=st.g2b.device)
+    root_g = _take(ts.label, st.b2g)
+    root_b = _take(st.g2b, root_g)
+    ok = (root_b >= 0) & (root_b // st.s_cap == pos // st.s_cap)
+    loc = torch.where(ok, root_b % st.s_cap, pos % st.s_cap)
+    blocked = ((_take(ts.constr, root_g) >= 0) | _take(ts.frozen, root_g)
+               | (st.seeds[0].reshape(-1) <= 0.0)).to(torch.int32)
+    return ((loc // tt.L).reshape(shape), (loc % tt.L).reshape(shape),
+            _take(ts.fin, root_g).reshape(shape), blocked.reshape(shape))
+
+
+def _k3_args(st: _Supertiles, ts: SolverState, params: OversegParams,
+             lvl: int) -> dict:
+    """`tile_table_rounds` arguments of gated level `lvl`."""
+    labr, labc, fin_b, blocked_b = _st_level_planes(st, ts)
+    size, c0, c1, c2 = st.seeds
+    return dict(labr=labr, labc=labc, size=size, c0=c0, c1=c1, c2=c2,
+                fin=fin_b, blocked=blocked_b, edges=st.edges,
+                theta=int(params.schedule[lvl]),
+                rounds=int(params.max_rounds_per_level),
+                merge_threshold=params.merge_threshold,
+                force_merge_weight=params.force_merge_weight,
+                metric=params.metric)
+
+
+def _end_table(tab, ptn, pbk, cap: int):
+    """Level-end scans sweep the full extraction table when it is
+    affordable; larger tables fall back to the per-slot top-K edges."""
+    if cap <= (1 << _PARTNER_BITS):
+        return tab
+    bits, bshift = _pack_spec(cap)
+    return torch.where(
+        ptn < I32MAX,
+        ((torch.clamp(pbk, max=NUM_BUCKETS - 2) >> bshift) << bits) | ptn,
+        I32MAX).t()
+
+
+def _st_kernel_levels(ts, tab, orig_slot, shape3, params, diag):
+    """Run schedule levels 0..st_levels-1 as one K3 launch each (merge
+    rounds per supertile), then sync the labels into the global table,
+    re-aggregate every region's statistics from the seed rows and run the
+    level end GLOBALLY over the full edge table (fins must see
+    cross-supertile edges)."""
+    from video_segment_tpu_torch.ops import tile_table as tt
+
+    nseg0 = ts.label.shape[0]
+    sink = nseg0 - 1
+    ptn, pbk = _topk_edges(tab, params.edge_topk)
+    st = _st_layout(ts, ptn, pbk, orig_slot, shape3, params)
+    seed_csum, seed_size = ts.csum, ts.size
+    end_tab = _end_table(tab, ptn, pbk, nseg0)
+    blk_idx = (torch.arange(st.n_sup, dtype=torch.int32,
+                            device=tab.device)[:, None] * st.s_cap)
+    for lvl in range(params.st_levels):
+        labr, labc = tt.tile_table_rounds(**_k3_args(st, ts, params, lvl))
+        new_root_pos = (blk_idx + (labr * tt.L + labc)
+                        .reshape(st.n_sup, st.s_cap)).reshape(-1)
+        new_root_g = _take(st.b2g, new_root_pos)
+        new_label = torch.where(
+            st.g2b >= 0, _take(new_root_g, torch.clamp(st.g2b, min=0)),
+            ts.label)
+        old_root = ts.label
+        cols = torch.cat([seed_csum, seed_size[:, None],
+                          _take(ts.frozen, old_root).to(torch.float32)
+                          [:, None]], dim=1)
+        stats = seg_sum(cols, new_label, nseg0)
+        ts = SolverState(new_label, stats[:, 0:3], stats[:, 3],
+                         seg_max(_take(ts.constr, old_root), new_label,
+                                 nseg0),
+                         seg_min(_take(ts.fin, old_root), new_label, nseg0),
+                         stats[:, 4] > 0)
+        ts = _table_level_end(ts, end_tab, int(params.schedule[lvl]), nseg0,
+                              sink, params)
+        act = int(((ts.label == _arange(nseg0, tab)) & (ts.size > 0)).sum())
+        # K3 does not report its round count: the diag row says 0.
+        diag[lvl] = (st.s_cap, 0, act)
+    return ts
+
+
+def supertile_level_inputs(vol, init_label, fin, cell_stats,
+                           params: OversegParams) -> dict:
+    """The K3 arguments of the first gated level of an unconstrained chunk
+    solve (table init, edge extraction, blocked layout), for holding the
+    kernel against its plain version at a real chunk's shapes."""
+    t, h, w, _ = vol.shape
+    n = t * h * w
+    r_cap = _table_cap(params, n, h, w, False)
+    fin_init = fin.reshape(n).to(torch.int32)
+    ts, memb, orig_slot = _init_table(
+        vol, init_label.reshape(n), torch.full_like(fin_init, -1),
+        torch.zeros(n, dtype=torch.bool, device=vol.device), fin_init,
+        r_cap, False, cell_stats)
+    tab = _extract_edges(memb.reshape(t, h, w), vol, r_cap + 1, r_cap,
+                         params, init_label=init_label.reshape(n),
+                         orig_slot=orig_slot)
+    ptn, pbk = _topk_edges(tab, params.edge_topk)
+    st = _st_layout(ts, ptn, pbk, orig_slot, (t, h, w), params)
+    return _k3_args(st, ts, params, 0)
+
+
 def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
                         params, thetas, level_rounds, has_constraints):
-    """Top-K edges, schedule levels over shrinking table phases, min-size
-    forcing, constraint association, label reconstruction."""
+    """Top-K edges, the supertile-gated levels (K3 or masked rounds),
+    schedule levels over shrinking table phases, min-size forcing,
+    constraint association, label reconstruction."""
     t, h, w = shape3
     nseg0 = ts.label.shape[0]
     n_levels = len(thetas)
@@ -745,7 +941,8 @@ def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
     def live_count(st, cap):
         return int(((st.label == _arange(cap, tab)) & (st.size > 0)).sum())
 
-    def run_rounds(st, theta, max_rounds, mode, p_tab, b_tab, end_tab=None):
+    def run_rounds(st, theta, max_rounds, mode, p_tab, b_tab, end_tab=None,
+                   sup=None, st_on=False):
         cap = p_tab.shape[0]
         sink = cap - 1
         scan_each = end_tab is not None and params.fin_every_round
@@ -755,16 +952,20 @@ def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
                 st = _table_level_end(st, end_tab, theta, cap, sink, params)
             st, moved, cands = _table_round(st, p_tab, b_tab, theta,
                                             (i % 2) == 0, mode, cap, sink,
-                                            params)
+                                            params, sup=sup, st_on=st_on)
             moved, cands = torch.stack([moved, cands]).tolist()
             idle = 2 if cands == 0 else (0 if moved > 0 else idle + 1)
             i += 1
         return st, i
 
+    use_kernel = _use_st_kernel(params)
+    lvl = 0
+    if use_kernel:
+        ts = _st_kernel_levels(ts, tab, orig_slot, shape3, params, diag)
+        lvl = params.st_levels
     caps = _table_phase_caps(nseg0)
     o2n = _arange(nseg0, tab)
     fb_slot = torch.zeros(nseg0, dtype=torch.int32, device=dev)
-    lvl = 0
     ptn = pbk = None
     for pi, cap in enumerate(caps):
         sink = cap - 1
@@ -772,21 +973,17 @@ def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
             ts, tab, o2n, fb_slot, orig_slot = _recompact_table(
                 ts, tab, o2n, fb_slot, orig_slot, cap)
         ptn, pbk = _topk_edges(tab, params.edge_topk)
-        # Level-end scans sweep the full extraction table when it is
-        # affordable; larger tables fall back to the per-slot top-K edges.
-        if cap <= (1 << _PARTNER_BITS):
-            end_tab = tab
-        else:
-            bits, bshift = _pack_spec(cap)
-            end_tab = torch.where(
-                ptn < I32MAX,
-                ((torch.clamp(pbk, max=NUM_BUCKETS - 2) >> bshift) << bits)
-                | ptn, I32MAX).t()
+        end_tab = _end_table(tab, ptn, pbk, cap)
         next_cap = caps[pi + 1] if pi + 1 < len(caps) else 0
+        # Masked supertile gating, per phase from the (recompacted)
+        # original roots, unless K3 already ran the gated levels.
+        sup = (_sup_ids_hw(orig_slot, h, w, params)
+               if params.st_levels > 0 and not use_kernel else None)
         act = live_count(ts, cap)
         while lvl < n_levels and (not next_cap or act > next_cap - 2):
             ts, n_used = run_rounds(ts, thetas[lvl], level_rounds[lvl],
-                                    MODE_MERGE, ptn, pbk, end_tab=end_tab)
+                                    MODE_MERGE, ptn, pbk, end_tab=end_tab,
+                                    sup=sup, st_on=lvl < params.st_levels)
             ts = _table_level_end(ts, end_tab, thetas[lvl], cap, sink,
                                   params)
             if params.min_size_interleave and params.min_region_size > 1:
@@ -839,8 +1036,16 @@ def _check_scope(params: OversegParams, flow) -> None:
         raise NotImplementedError(f"banded solve (bands>1): {_ROADMAP} "
                                   "item 8")
     if params.st_levels > 0:
-        raise NotImplementedError(f"supertile levels (st_levels>0, K3): "
-                                  f"{_ROADMAP} item 11")
+        # Packed K3 keys hold 12 partner bits; the slot grid is 128 wide.
+        if not (0 < params.st_slots <= 4096 and params.st_slots % 128 == 0):
+            raise ValueError(f"st_slots={params.st_slots}: supertile tables "
+                             "need a multiple of 128, at most 4096")
+        # The last level must be global: every level below st_levels defers
+        # cross-supertile and constrained merges.
+        if params.st_levels >= len(params.schedule):
+            raise ValueError(f"st_levels={params.st_levels} leaves no global "
+                             f"level of the {len(params.schedule)}-level "
+                             "schedule")
     if params.two_stage:
         raise NotImplementedError(f"two_stage: {_ROADMAP} item 11")
     if params.gradient_trait:
