@@ -21,7 +21,12 @@ Phases (each prints one line; any failure exits non-zero):
 10. the supertile path: SegmentStream(DenseSegmentation(solver_params=
     fine presegs + 3 K3 levels), RegionSegmentation) over 41 frames,
     launch counts proving K1, K2 and K3 ran;
-11. the flood and supertile dense stages, card vs CPU (boundary F).
+11. the flood and supertile dense stages, card vs CPU (boundary F);
+12. TV-L1 flow on the card: ms per 272x480 pair (alone and in a batch of
+    6), card vs CPU, and the panning background's recovered motion;
+13. the flow path: segment_frames(use_flow=True, device="cuda") over 41
+    frames, launch counts proving K1 and K2 ran;
+14. the flow dense stage, card vs CPU on the same host flow arrays.
 Then a JSON line of per-kernel results, the card's name and power limit
 from nvidia-smi, and the final {"ok": true, ...} line.
 """
@@ -74,9 +79,11 @@ def textured(rng, shape, sigma):
     return ndi.gaussian_filter(vol, (0, sigma, sigma, 0)).astype(np.float32)
 
 
-def synthetic_clip(n: int, seed: int = 0) -> list[np.ndarray]:
-    """Moving piecewise-smooth textured shapes over a panning textured
-    background, plus sensor noise: BGR uint8 (H, W) frames."""
+def synthetic_clip(n: int, seed: int = 0, background: bool = False):
+    """Moving piecewise-smooth textured shapes over a background texture
+    that pans 2 px left a frame, plus sensor noise: BGR uint8 (H, W)
+    frames.  With `background`, also the (H, W) masks of the pixels that
+    no shape covers."""
     import scipy.ndimage as ndi
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
@@ -94,19 +101,22 @@ def synthetic_clip(n: int, seed: int = 0) -> list[np.ndarray]:
             vy=rng.uniform(-1.5, 1.5), vx=rng.uniform(-3, 3),
             col=rng.uniform(20, 235, 3), grad=rng.uniform(-40, 40, 3),
             tex=rng.uniform(0.0, 0.6)))
-    frames = []
+    frames, masks = [], []
     for f in range(n):
         bg_tex = tex[:, 2 * f:2 * f + W]
         img = grad + bg_tex
+        bg = np.ones((H, W), bool)
         for s in shapes:
             cy, cx = s["cy"] + s["vy"] * f, s["cx"] + s["vx"] * f
             d = ((yy - cy) / s["ry"]) ** 2 + ((xx - cx) / s["rx"]) ** 2
             m = d < 1
+            bg &= ~m
             img[m] = (s["col"] + s["grad"] * d[m, None]
                       + s["tex"] * bg_tex[::-1][m])
         img += rng.normal(0, 3, img.shape)
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
-    return frames
+        masks.append(bg)
+    return (frames, masks) if background else frames
 
 
 def expected_chunk_solves(n_frames: int, chunk_size: int) -> int:
@@ -210,22 +220,24 @@ def path_summary(out, stream, wall, peak, sets) -> str:
             f"{[[len(lv.ids) for lv in sf.hierarchy] for sf in sets]}")
 
 
-def dense_level0(frames, options, params, device) -> np.ndarray:
-    """Level-0 label images of the dense stage (one flush chunk)."""
+def dense_level0(frames, options, params, device, flows=None) -> np.ndarray:
+    """Level-0 label images of the dense stage (one flush chunk), fed the
+    per-frame host flow arrays `flows` (None for the first) if given."""
     from video_segment_tpu_torch.core import dense
     ds = dense.DenseSegmentation(options, W, H, solver_params=params,
                                  device=device)
     res = []
-    for fr in frames:
-        res += ds.process_frame(False, fr)
+    for i, fr in enumerate(frames):
+        res += ds.process_frame(False, fr, None if flows is None
+                                else flows[i])
     res += ds.process_frame(True)
     return rasterize(res)
 
 
-def dense_card_vs_cpu(frames, options, params=None) -> tuple:
+def dense_card_vs_cpu(frames, options, params=None, flows=None) -> tuple:
     """The dense stage on the card and on the CPU: (boundary F, regions
     per device, the card's level-0 images)."""
-    level0 = {name: dense_level0(frames, options, params, name)
+    level0 = {name: dense_level0(frames, options, params, name, flows)
               for name in ("cuda", "cpu")}
     fm = boundary_f(level0["cuda"], level0["cpu"])
     return (fm, {k: int(len(np.unique(v))) for k, v in level0.items()},
@@ -354,7 +366,7 @@ def main() -> int:
 
     # -- 5. main path -------------------------------------------------------
     from video_segment_tpu_torch import api
-    frames = synthetic_clip(N_FRAMES)
+    frames, bg_masks = synthetic_clip(N_FRAMES, background=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     tf.tile_felzenszwalb.launches = 0
@@ -519,6 +531,68 @@ def main() -> int:
     log("cpu", f"supertile on the card, K3 path vs masked rounds: boundary "
         f"F {boundary_f(card, masked):.4f} (regions "
         f"{len(np.unique(card))} vs {len(np.unique(masked))})")
+
+    # -- 12. TV-L1 on the card ----------------------------------------------
+    from video_segment_tpu_torch.core import flow as fl
+    grays = torch.from_numpy(np.stack([fl.bgr_to_gray(f)
+                                       for f in frames[:7]])).to(dev)
+    cur, prev = grays[1], grays[0]
+    flow_card = fl.tvl1_flow(cur, prev).cpu().numpy()   # frame 1, backward
+    t0 = time.monotonic()
+    flow_cpu = fl.tvl1_flow(cur.cpu(), prev.cpu()).numpy()
+    cpu_s = time.monotonic() - t0
+    tvl1_ms = cuda_ms(lambda: fl.tvl1_flow(cur, prev), 3)
+    tvl1_b6_ms = cuda_ms(lambda: fl.tvl1_flow_batch(grays[1:7], grays[:6]),
+                         2) / 6
+    diff = np.abs(flow_card - flow_cpu)
+    n_trunc = int((flow_card.astype(np.int32)
+                   != flow_cpu.astype(np.int32)).sum())
+    bg = bg_masks[0] & bg_masks[1]
+    med_u = float(np.median(flow_card[bg, 0]))
+    med_v = float(np.median(flow_card[bg, 1]))
+    log("flow", f"TV-L1 {W}x{H} pair: {tvl1_ms:.2f} ms alone, "
+        f"{tvl1_b6_ms:.2f} ms per pair in a batch of 6 (CUDA events); CPU "
+        f"{cpu_s:.2f} s; card vs CPU max |d| {diff.max():.3g} px, mean "
+        f"{diff.mean():.3g} px, trunc differs at {n_trunc} pixels; "
+        f"background ({int(bg.sum())} px) median flow ({med_u:.3f}, "
+        f"{med_v:.3f}), built as (+2, 0)")
+    if abs(med_u - 2.0) > 0.3 or abs(med_v) > 0.3:
+        raise AssertionError(f"background flow ({med_u:.3f}, {med_v:.3f}) "
+                             "is not the clip's pan (+2, 0)")
+    del grays
+
+    # -- 13. flow path ------------------------------------------------------
+    reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min,
+                   tp.tile_presegment, tt.tile_table_rounds)
+    stream = api.segment_frames(iter(frames_p), W, H, use_flow=True,
+                                device="cuda")
+    out, wall, peak = run_stream(stream, dev)
+    counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
+              tp.tile_presegment.launches, tt.tile_table_rounds.launches)
+    sets = check_stream(out, stream, N_PATH_FRAMES)
+    want = (N_PATH_FRAMES, n_solves_p, 0, 0)
+    if counts != want:
+        raise AssertionError(f"flow path launches K1/K2/K4/K3 {counts}, "
+                             f"want {want}")
+    if "flow" not in stream.stage_seconds:
+        raise AssertionError("the flow path ran no flow engine")
+    log("flowpath", path_summary(out, stream, wall, peak, sets)
+        + f"; launches K1 {counts[0]} K2 {counts[1]}")
+
+    # -- 14. flow dense stage, card vs CPU ----------------------------------
+    t0 = time.monotonic()
+    gray8 = torch.from_numpy(np.stack([fl.bgr_to_gray(f)
+                                       for f in frames[:8]])).to(dev)
+    flows8 = [None] + list(fl.tvl1_flow_batch(gray8[1:], gray8[:-1])
+                           .cpu().numpy())
+    fm, n_reg, _ = dense_card_vs_cpu(frames[:8],
+                                     api.DenseSegmentationOptions(),
+                                     flows=flows8)
+    log("cpu", f"flow: 8 frames with the same host flow arrays, one flush "
+        f"chunk: boundary F {fm:.4f} (regions {n_reg}; "
+        f"{time.monotonic() - t0:.1f}s)")
+    if fm < 0.9:
+        raise AssertionError(f"flow: card vs CPU boundary F {fm:.4f} < 0.9")
 
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -2,7 +2,8 @@
 
 A seeded 10-frame 24x256 clip streams through both dense stages with
 chunk_size=4 (four chunk solves, flush included), with the felz and the
-flood pre-segmentation, and with supertile-gated solver levels; every
+flood pre-segmentation, with supertile-gated solver levels, and with
+JAX-computed backward flow fed to both; every
 SegFrame's RLE and the level-0 hierarchies must be exact.  The clip is fed unsmoothed (presmoothing="none"): XLA's CPU
 backend contracts the filters' multiply-adds into FMAs, so smoothed frames
 differ from the port's in the last ulp; the filters are compared
@@ -90,6 +91,45 @@ def test_dense_matches_jax():
                                      "host_tail"}
 
 
+def jax_flows(frames):
+    """Backward TV-L1 flow of each frame (None for the first), computed by
+    the JAX package: the arrays both packages are fed."""
+    from video_segment_tpu.core import flow as jflow
+    gray = [jnp.asarray(jflow.bgr_to_gray(f)) for f in frames]
+    return [None] + [np.asarray(jflow.tvl1_flow(gray[i], gray[i - 1]))
+                     for i in range(1, len(frames))]
+
+
+@pytest.mark.parametrize("form", ["arrays", "flowfields"])
+def test_dense_flow_matches_jax(form):
+    """Flow-displaced temporal edges and flow-advected connectedness over
+    four chunk solves: exact against JAX given the same flow arrays, passed
+    to the port as host arrays or as device-resident FlowFields."""
+    from video_segment_tpu_torch.core import flow as tflow
+    frames = clip()
+    flows = jax_flows(frames)
+    assert max(np.abs(f).max() for f in flows[1:]) > 1.0
+    jds = jdense.DenseSegmentation(options(), W, H)
+    want = []
+    for fr, fl in zip(frames, flows):
+        want += jds.process_frame(False, fr, fl)
+    want += jds.process_frame(True)
+    ds = tdense.DenseSegmentation(options(), W, H, device="cpu")
+    got = []
+    for fr, fl in zip(frames, flows):
+        if fl is not None and form == "flowfields":
+            fl = tflow.FlowField(dev=torch.tensor(fl))
+        got += ds.process_frame(False, fr, fl)
+    got += ds.process_frame(True)
+    assert_frames_equal(got, want)
+    assert len(ds.solve_diag) == 4
+    # The flow changed the segmentation (it reached the solver).
+    plain = run(jdense.DenseSegmentation(options(), W, H), frames)
+    assert any(not np.array_equal(a.region_ids, b.region_ids)
+               or not np.array_equal(a.lxs, b.lxs)
+               for a, b in zip(want, plain))
+
+
 def test_load_state_hands_over_jax_chunk_one():
     """JAX's streaming state after chunk 1 -> the port: the port's chunk 2
     (the constrained solve) equals JAX's."""
@@ -106,6 +146,34 @@ def test_load_state_hands_over_jax_chunk_one():
     tds.load_state(state)
     want = run(jds, frames[4:7], flush=False)
     got = run(tds, frames[4:7], flush=False)
+    assert want, "chunk 2 must have been solved"
+    assert_frames_equal(got, want)
+
+
+def test_load_state_with_flow_hands_over_jax_chunk_one():
+    """JAX's streaming state after chunk 1 of a flow run (its checkpoint
+    keys flow_buffer and has_flow included) -> the port: the port's
+    constrained, flow-displaced chunk 2 equals JAX's."""
+    frames = clip()
+    flows = jax_flows(frames)
+    jds = jdense.DenseSegmentation(options(), W, H)
+    for fr, fl in zip(frames[:4], flows[:4]):
+        jds.process_frame(False, fr, fl)
+    state = dict(overlap_gids=jds._overlap_gids,
+                 max_region_id=jds._max_region_id,
+                 chunk_start=jds._chunk_start, chunk_id=jds._chunk_id,
+                 num_output_frames=jds._num_output_frames,
+                 buffer=[np.asarray(b) for b in jds._buffer],
+                 flow_buffer=[None if f is None else np.asarray(f)
+                              for f in jds._flow_buffer],
+                 has_flow=jds._has_flow)
+    assert state["has_flow"] and state["flow_buffer"][0] is not None
+    tds = tdense.DenseSegmentation(options(), W, H, device="cpu")
+    tds.load_state(state)
+    want, got = [], []
+    for fr, fl in zip(frames[4:7], flows[4:7]):
+        want += jds.process_frame(False, fr, fl)
+        got += tds.process_frame(False, fr, fl)
     assert want, "chunk 2 must have been solved"
     assert_frames_equal(got, want)
 
@@ -163,9 +231,10 @@ def test_scope_raises():
     with pytest.raises(NotImplementedError):
         tdense.DenseSegmentation(DenseSegmentationOptions(), 1920, 1080,
                                  device="cpu")
-    ds = tdense.DenseSegmentation(options(), W, H, device="cpu")
+    # Flow is ported; the banded solve is not.
     with pytest.raises(NotImplementedError):
-        ds.process_frame(False, clip(1)[0], np.zeros((H, W, 2), np.float32))
+        tdense.DenseSegmentation(_options(solver_bands=2), W, H,
+                                 device="cpu")
 
 
 def _options(**kw):

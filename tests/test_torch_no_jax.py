@@ -2,9 +2,9 @@
 
 A subprocess blocks the three (`sys.modules[name] = None` makes their
 import raise), imports the port and its kernel modules, runs a tiny
-flow-off `segment_frames(..., device="cpu")` end to end, and runs the
-dense stage with the flood pre-segmentation (K4) and with K3 supertile
-levels.
+`segment_frames(..., device="cpu")` end to end with flow off and with its
+default flow on (the port's TV-L1 engine), and runs the dense stage with
+the flood pre-segmentation (K4) and with K3 supertile levels.
 """
 
 import os
@@ -29,7 +29,8 @@ SCRIPT = textwrap.dedent("""
     from video_segment_tpu.core.options import (DenseSegmentationOptions,
                                                 RegionSegmentationOptions)
     from video_segment_tpu_torch.api import segment_frames
-    from video_segment_tpu_torch.core import dense, oversegmentation as ov
+    from video_segment_tpu_torch.core import dense, flow
+    from video_segment_tpu_torch.core import oversegmentation as ov
     from video_segment_tpu_torch.ops import (tile_extract, tile_felz,
                                              tile_preseg, tile_table)
 
@@ -40,17 +41,21 @@ SCRIPT = textwrap.dedent("""
         img[4:12, 10 + 4 * f:40 + 4 * f] = (200, 90, 40)
         img[:, 90:] = (30, 160, 220)
         frames.append((img + rng.integers(0, 6, img.shape)).astype(np.uint8))
-    out = list(segment_frames(
-        iter(frames), 128, 16, use_flow=False, device="cpu",
-        dense_options=DenseSegmentationOptions(chunk_size=3,
-                                               frac_min_region_size=0.1),
-        region_options=RegionSegmentationOptions(
-            chunk_set_size=2, chunk_set_overlap=1, min_region_num=2,
-            max_region_num=40, use_flow=False)))
-    assert [sf.frame_index for sf in out] == list(range(7)), out
-    assert any(sf.hierarchy for sf in out)
-    for sf in out:
-        assert sf.interval_counts.sum() > 0
+    for use_flow in (False, True):
+        stream = segment_frames(
+            iter(frames), 128, 16, use_flow=use_flow, device="cpu",
+            dense_options=DenseSegmentationOptions(chunk_size=3,
+                                                   frac_min_region_size=0.1),
+            region_options=RegionSegmentationOptions(
+                chunk_set_size=2, chunk_set_overlap=1, min_region_num=2,
+                max_region_num=40, use_flow=use_flow))
+        out = list(stream)
+        assert [sf.frame_index for sf in out] == list(range(7)), out
+        assert any(sf.hierarchy for sf in out)
+        for sf in out:
+            assert sf.interval_counts.sum() > 0
+        assert (isinstance(stream.flow, flow.FlowEngine)
+                and "flow" in stream.stage_seconds) == use_flow
     for opts, params in (
             (DenseSegmentationOptions(chunk_size=3, preseg_mode="flood"),
              None),

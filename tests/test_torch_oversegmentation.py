@@ -5,7 +5,8 @@ pre-segmentation (the NumPy mirror, which the port's K1 equals exactly),
 and -- for the constrained case -- host-built head planes as the dense
 stage builds them.  JAX runs its proven-equal scatter extraction
 (extract_tile=False); the port runs both the scatter form and the tile
-(K2) form.  label, constr, size and orig must be exact.
+(K2) form, without flow and with random flow-displaced temporal partners.
+label, constr, size and orig must be exact.
 """
 
 import numpy as np
@@ -141,8 +142,99 @@ def test_scope_raises():
               tov.OversegParams(edge_table=False)):
         with pytest.raises(NotImplementedError):
             tov.oversegment(vol, params=p)
+    # Flow is ported; a banded solve with flow is not.
     with pytest.raises(NotImplementedError):
-        tov.oversegment(vol, flow=torch.zeros((1, 8, 128, 2)))
+        tov.oversegment(vol, flow=torch.zeros((1, 8, 128, 2)),
+                        params=tov.OversegParams(bands=2))
+
+
+def _flow(seed, t=T, h=H, w=W):
+    """Random uniform(-2, 2) backward flow of frames 1..t-1 (the JAX
+    package's test_tile_extract input): partners land in other rows, other
+    tiles and outside the frame."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-2, 2, (t - 1, h, w, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["free", "head_planes"])
+def test_oversegment_flow_matches_jax(case):
+    """Flow-displaced temporal directions: exact against JAX on the scatter
+    and the K2 tile extraction forms."""
+    vol, init, fin, params, kw = _inputs(11, case == "head_planes")
+    kw["flow"] = _flow(21)
+    want = _run_jax(vol, init, fin, params, kw)
+    no_flow = _run_jax(vol, init, fin, params,
+                       {k: v for k, v in kw.items() if k != "flow"})
+    assert not np.array_equal(np.asarray(want.label),
+                              np.asarray(no_flow.label))
+    for extract_tile in (False, True):
+        got = _run_port(vol, init, fin, params, kw, extract_tile)
+        for field in ("label", "constr", "size", "orig"):
+            np.testing.assert_array_equal(
+                getattr(got, field).numpy(),
+                np.asarray(getattr(want, field)),
+                err_msg=f"{field} (extract_tile={extract_tile})")
+
+
+def test_extract_edges_flow_tile_equals_scatter():
+    """The packed edge table with flow-displaced partners (from other rows,
+    other tiles and frame t-1 of other tiles): the port's K2 tile form
+    equals its scatter form and JAX's scatter extraction, on JAX's
+    test_tile_extract flow input."""
+    from test_tile_extract import _tile_flood_init
+    rng = np.random.default_rng(3)
+    t, h, w = 3, 16, 128
+    vol = rng.uniform(0, 1, (t, h, w, 3)).astype(np.float32)
+    flow = rng.uniform(-2, 2, (t - 1, h, w, 2)).astype(np.float32)
+    init = np.array(_tile_flood_init(t, h, w, rng))
+    n = t * h * w
+    pj = jov.OversegParams()
+    r_cap = jov._table_cap(pj, n, h, w, False)
+    _, memb, _ = jov._init_table(
+        jnp.asarray(vol), jnp.asarray(init), jnp.full(n, -1, jnp.int32),
+        jnp.zeros(n, bool), jnp.full(n, jov.NUM_BUCKETS, jnp.int32), r_cap,
+        False, pj, None, 0)
+    want = np.asarray(jov._extract_edges(memb.reshape(t, h, w),
+                                         jnp.asarray(vol), jnp.asarray(flow),
+                                         r_cap + 1, r_cap, pj))
+    pt = tov.params_from_jax(pj)
+    assert tov._table_cap(pt, n, h, w, False) == r_cap
+    tinit = torch.from_numpy(init)
+    _, tmemb, orig = tov._init_table(
+        torch.from_numpy(vol), tinit, torch.full((n,), -1, dtype=torch.int32),
+        torch.zeros(n, dtype=torch.bool),
+        torch.full((n,), tov.NUM_BUCKETS, dtype=torch.int32), r_cap, False)
+    assert (want[:13] < tov.I32MAX).sum() > 0
+    for extract_tile in (False, True):
+        got = tov._extract_edges(
+            tmemb.reshape(t, h, w), torch.from_numpy(vol), r_cap + 1, r_cap,
+            pt._replace(extract_tile=extract_tile), init_label=tinit,
+            orig_slot=orig, flow=torch.from_numpy(flow))
+        np.testing.assert_array_equal(got.numpy(), want,
+                                      err_msg=f"extract_tile={extract_tile}")
+
+
+def test_flow_displaced_temporal_edges():
+    """JAX's moving-bar case: a 2-px bar moves 5 px right; undisplaced
+    temporal edges cannot reach it, the backward flow connects it."""
+    t, h, w = 2, 8, 16
+    vol = np.zeros((t, h, w, 3), np.float32)
+    vol[0, :, 4:6] = 1.0
+    vol[1, :, 9:11] = 1.0
+    flow = np.zeros((1, h, w, 2), np.float32)
+    flow[0, :, :, 0] = -5.0
+    kw = dict(min_region_size=1, schedule=(2, 32, 256, 2047),
+              max_rounds_per_level=8, max_final_rounds=16)
+    p = tov.OversegParams(**kw)
+    lab_nf = tov.oversegment(torch.from_numpy(vol), params=p).label.numpy()
+    res = tov.oversegment(torch.from_numpy(vol), flow=torch.from_numpy(flow),
+                          params=p)
+    lab_fl = res.label.numpy()
+    assert lab_nf[0, 0, 4] != lab_nf[1, 0, 9]
+    assert lab_fl[0, 0, 4] == lab_fl[1, 0, 9]
+    want = jov.oversegment(jnp.asarray(vol), flow=jnp.asarray(flow),
+                           params=jov.OversegParams(**kw))
+    np.testing.assert_array_equal(lab_fl, np.asarray(want.label))
 
 
 def test_table_phase_caps_match():

@@ -1,17 +1,22 @@
-"""Port region stage and the whole flow-off slice against the JAX package.
+"""Port region stage and the whole slice against the JAX package.
 
-- `agglomerate` on fixed seeded histograms: per-level labels exact given
-  the same chi-square distances; with its own (float-order flip, ROADMAP.md
-  Queue 3) level counts equal and level 0 nearly identical.
-- `segment_frames(use_flow=False)` end to end on the dense tests' clip
-  (unsmoothed, see test_torch_dense), with the port's Lab conversion
-  replaced by cv2's in that test only: per-level id images exact, or --
-  where a float-order flip of the agglomeration's chi-square sums moves a
-  quantized distance (ROADMAP.md, Queue 3) -- boundary F >= 0.95 at every
-  level; the test reports which case held.
+- `agglomerate` on fixed seeded histograms (with and without per-frame
+  flow tables): per-level labels exact given the same chi-square
+  distances; with its own (float-order flip, ROADMAP.md Queue 3) level
+  counts equal and level 0 nearly identical.
+- `flow_bins` and `edge_flow_distance` against JAX (distances within
+  2e-6 relative, the F1 class of float-order differences).
+- `segment_frames` end to end on the dense tests' clip (unsmoothed, see
+  test_torch_dense), with the port's Lab conversion replaced by cv2's in
+  those tests only, flow off and flow on.  Given the same flow arrays (and
+  flow off) the per-level id images must be exact.  Where each package
+  computes its own flow, or a float-order flip of the agglomeration's
+  chi-square sums moves a quantized distance (ROADMAP.md, Queue 3), they
+  may instead agree at boundary F >= 0.95 at every level; the tests report
+  which case held.
 - `bgr_to_lab_u8` within 1 of cv2 on every channel.
-- `segment_video` writes a .pb that SegmentationReader and the protobuf
-  layer read back.
+- `segment_video` (flow off and on) writes a .pb that SegmentationReader
+  and the protobuf layer read back.
 """
 
 import numpy as np
@@ -57,38 +62,81 @@ def _hist_problem(seed, r=200, bins=1000):
     return hist, sizes, edges, r
 
 
-def _agglomerate_both(seed, constrained, **problem):
+def _flow_tables(seed, rcap, r, t=6, bins=16):
+    """Per-frame flow angle histograms and vector counts: region i lives in
+    a run of frames, with a dominant angle bin per region group."""
+    rng = np.random.default_rng(seed)
+    fh = np.zeros((t, rcap, bins), np.float32)
+    fc = np.zeros((t, rcap), np.float32)
+    for i in range(r):
+        t0 = int(rng.integers(0, t))
+        t1 = int(rng.integers(t0 + 1, t + 1))
+        main = (i // 7) % bins
+        for f in range(t0, t1):
+            n = int(rng.integers(5, 60))
+            b = (main + rng.integers(-2, 3, n)) % bins
+            np.add.at(fh[f, i], b, rng.random(n).astype(np.float32) * 4)
+            fc[f, i] = n
+    return fh, fc
+
+
+def _agglomerate_both(seed, constrained, flow=False, **problem):
     hist, sizes, edges, r = _hist_problem(seed, **problem)
-    kw = dict(min_region_num=5, max_region_num=150, use_flow=False)
+    kw = dict(min_region_num=5, max_region_num=150, use_flow=flow)
     if constrained:
         constr = np.full(hist.shape[0], -1, np.int32)
         constr[:40] = np.arange(40) // 8
         kw["constraints"] = [constr, constr]
-    fh = np.zeros((0, hist.shape[0], 16), np.float32)
-    fc = np.zeros((0, hist.shape[0]), np.float32)
+    if flow:
+        fh, fc = _flow_tables(seed, hist.shape[0], r)
+    else:
+        fh = np.zeros((0, hist.shape[0], 16), np.float32)
+        fc = np.zeros((0, hist.shape[0]), np.float32)
     want = jagg.agglomerate(hist, fh, fc, sizes, edges, r, **kw)
     got = tagg.agglomerate(hist, fh, fc, sizes, edges, r, device="cpu", **kw)
     return got, want, r
 
 
-@pytest.mark.parametrize("constrained", [False, True],
-                         ids=["free", "constrained"])
-def test_agglomerate_matches_jax_given_jax_distances(monkeypatch,
-                                                     constrained):
-    """With JAX's chi-square distances substituted, every level equals the
-    JAX package's exactly: the merge logic (budgets, radix kth select,
-    hooking, phases, constraint forcing) is the same."""
+@pytest.mark.parametrize("case", ["free", "constrained", "flow"])
+def test_agglomerate_matches_jax_given_jax_distances(monkeypatch, case):
+    """With JAX's chi-square distances substituted (appearance, and in the
+    flow case flow and their SquaredOR combination, which XLA contracts
+    into FMAs once the flow distance is nonzero: F1's flow case, ROADMAP.md
+    Queue 3), every level equals the JAX package's exactly: the merge logic
+    (budgets, radix kth select, hooking, phases, constraint forcing, the
+    flow tables' re-aggregation) is the same."""
     import jax
     from video_segment_tpu.ops import histograms as jhops
     from video_segment_tpu_torch.ops import histograms as thops
     jdist = jax.jit(jhops.edge_color_distance)
+    jfdist = jax.jit(jhops.edge_flow_distance)
+    calls = []
 
     def jax_distance(hist, edges, batch=8192):
         d = jdist(jnp.asarray(hist.numpy()), jnp.asarray(edges.numpy()))
         return torch.from_numpy(np.array(d))
 
+    def jax_flow_distance(fh, fc, edges, batch=8192):
+        calls.append(1)
+        d = jfdist(jnp.asarray(fh.numpy()), jnp.asarray(fc.numpy()),
+                   jnp.asarray(edges.numpy()))
+        return torch.from_numpy(np.array(d))
+
     monkeypatch.setattr(thops, "edge_color_distance", jax_distance)
-    got, want, _ = _agglomerate_both(5, constrained)
+    monkeypatch.setattr(thops, "edge_flow_distance", jax_flow_distance)
+    if case == "flow":
+        jcomb = jax.jit(jhops.combined_distance,
+                        static_argnames=("penalizer", "use_flow"))
+
+        def jax_combined(*args, penalizer, use_flow):
+            d = jcomb(*(jnp.asarray(a.numpy()) for a in args),
+                      penalizer=penalizer, use_flow=use_flow)
+            return torch.from_numpy(np.array(d))
+
+        monkeypatch.setattr(thops, "combined_distance", jax_combined)
+    got, want, _ = _agglomerate_both(5, case == "constrained",
+                                     flow=case == "flow")
+    assert bool(calls) == (case == "flow")
     assert len(want) > 3
     assert len(got) == len(want)
     for a, b in zip(got, want):
@@ -125,9 +173,79 @@ def test_accumulate_all_matches_jax():
     want, _, _ = jregion._accumulate_all(
         jnp.asarray(labels), jnp.asarray(lab_u8), jnp.zeros((1, 1, 1)),
         jnp.zeros((1, 1, 1)), 32, 10, 20, 16, False)
-    got = tregion._accumulate_all(torch.from_numpy(labels),
-                                  torch.from_numpy(lab_u8), 32, 10, 20)
+    got, fh, fc = tregion._accumulate_all(torch.from_numpy(labels),
+                                          torch.from_numpy(lab_u8), 32, 10,
+                                          20)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert fh.shape == (0, 32, 16) and fc.shape == (0, 32)
+
+
+def test_accumulate_all_flow_matches_jax_and_native():
+    """Per-frame flow histograms (magnitude-weighted angle bins) and vector
+    counts: the torch path equals JAX's device path and the native
+    weighted-bincount path the region stage takes first."""
+    from video_segment_tpu import native
+    rng = np.random.default_rng(10)
+    t, h, w, rcap, fb = 2, 8, 16, 32, 16
+    labels = rng.integers(0, 30, (t, h, w)).astype(np.int32)
+    lab_u8 = rng.integers(0, 256, (t, h, w, 3)).astype(np.uint8)
+    fbin = rng.integers(0, fb, (t, h, w)).astype(np.int8)
+    fmag = (rng.random((t, h, w)) * 5).astype(np.float16)
+    want = jregion._accumulate_all(
+        jnp.asarray(labels), jnp.asarray(lab_u8), jnp.asarray(fbin),
+        jnp.asarray(fmag), rcap, 10, 20, fb, True)
+    got = tregion._accumulate_all(
+        torch.from_numpy(labels), torch.from_numpy(lab_u8), rcap, 10, 20,
+        torch.from_numpy(fbin), torch.from_numpy(fmag), fb)
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+    tkey = ((np.arange(t, dtype=np.int64)[:, None, None] * rcap + labels)
+            * fb + fbin)
+    nat_h = native.weighted_bincount(tkey, fmag.astype(np.float32),
+                                     t * rcap * fb)
+    nat_c = native.weighted_bincount(tkey // fb, np.ones(tkey.size,
+                                                         np.float32),
+                                     t * rcap)
+    np.testing.assert_allclose(got[1].numpy().reshape(-1), nat_h,
+                               rtol=1e-6)
+    np.testing.assert_array_equal(got[2].numpy().reshape(-1), nat_c)
+
+
+def test_flow_descriptor_ops_match_jax():
+    """flow_bins exact in its bins; edge_flow_distance within 2e-6
+    relative (16-bin chi-square sums and a weighted sum over frames in
+    another float order: the F1 class)."""
+    from video_segment_tpu.ops import histograms as jhops
+    from video_segment_tpu_torch.ops import histograms as thops
+    rng = np.random.default_rng(11)
+    flow = rng.normal(0, 3, (4, 8, 16, 2)).astype(np.float32)
+    flow[0, 0, :4] = [[1, 0], [0, 1], [-1, 0], [0, -1]]
+    bj, mj = jhops.flow_bins(jnp.asarray(flow))
+    bt, mt = thops.flow_bins(torch.from_numpy(flow))
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
+    np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-6)
+    rcap, r = 256, 200
+    fh, fc = _flow_tables(12, rcap, r)
+    _, _, edges, _ = _hist_problem(12)
+    want = np.asarray(jhops.edge_flow_distance(
+        jnp.asarray(fh), jnp.asarray(fc), jnp.asarray(edges)))
+    got = thops.edge_flow_distance(torch.from_numpy(fh),
+                                   torch.from_numpy(fc),
+                                   torch.from_numpy(edges), batch=64).numpy()
+    assert (want > 0).sum() > len(edges) // 2
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=0)
+    # The SquaredOR combination with a nonzero flow distance: XLA contracts
+    # (1-c)(1-f) and its complement into FMAs; a few ulps of 1.0 apart.
+    n = 4096
+    c, f = (torch.from_numpy(rng.random(n).astype(np.float32))
+            for _ in range(2))
+    sa, sb = (torch.from_numpy(rng.integers(1, 2000, n).astype(np.float32))
+              for _ in range(2))
+    inv = torch.tensor(1 / 500.0)
+    want_c = np.asarray(jhops.combined_distance(
+        *(jnp.asarray(x.numpy()) for x in (c, f, sa, sb, inv))))
+    got_c = thops.combined_distance(c, f, sa, sb, inv).numpy()
+    np.testing.assert_allclose(got_c, want_c, rtol=0, atol=4e-7)
 
 
 def test_histogram_ops_match_jax():
@@ -172,13 +290,13 @@ def test_bgr_to_lab_u8_within_one_of_cv2():
         assert np.abs(got - want).max() <= 1
 
 
-def _options():
+def _options(use_flow=False):
     return (DenseSegmentationOptions(chunk_size=4, presmoothing="none",
                                      frac_min_region_size=0.05,
                                      preseg_mode="felz"),
             RegionSegmentationOptions(chunk_set_size=2, chunk_set_overlap=1,
                                       min_region_num=3, max_region_num=60,
-                                      use_flow=False))
+                                      use_flow=use_flow))
 
 
 def _level_images(frames_out, h, w):
@@ -203,17 +321,10 @@ def _level_images(frames_out, h, w):
     return out
 
 
-def test_segment_frames_matches_jax(monkeypatch):
-    import cv2
-    monkeypatch.setattr(tregion, "bgr_to_lab_u8",
-                        lambda im: cv2.cvtColor(im, cv2.COLOR_BGR2Lab))
-    frames = clip()
-    d, r = _options()
-    want = list(japi.segment_frames(iter(frames), W, H, use_flow=False,
-                                    dense_options=d, region_options=r))
-    got = list(tapi.segment_frames(iter(frames), W, H, use_flow=False,
-                                   dense_options=d, region_options=r,
-                                   device="cpu"))
+def _compare_levels(got, want, exact_required=False) -> bool:
+    """Per-level id images of every frame: equal, or (unless
+    `exact_required`) at boundary F >= 0.95 at every level.  Returns
+    whether all were equal."""
     assert [sf.frame_index for sf in got] == [sf.frame_index for sf in want]
     assert sum(sf.hierarchy is not None for sf in got) >= 2
     lw, lg = _level_images(want, H, W), _level_images(got, H, W)
@@ -223,16 +334,95 @@ def test_segment_frames_matches_jax(monkeypatch):
         for lv, (a, b) in enumerate(zip(lg[f], lw[f])):
             assert (a >= 0).all()
             if not np.array_equal(a, b):
+                assert not exact_required, f"frame {f} level {lv} differs"
                 exact = False
                 fm = metrics.boundary_f_measure(a, b)["f_measure"]
                 assert fm >= 0.95, (f, lv, fm)
+    return exact
+
+
+def _cv2_lab(monkeypatch):
+    import cv2
+    monkeypatch.setattr(tregion, "bgr_to_lab_u8",
+                        lambda im: cv2.cvtColor(im, cv2.COLOR_BGR2Lab))
+
+
+def test_segment_frames_matches_jax(monkeypatch):
+    _cv2_lab(monkeypatch)
+    frames = clip()
+    d, r = _options()
+    want = list(japi.segment_frames(iter(frames), W, H, use_flow=False,
+                                    dense_options=d, region_options=r))
+    got = list(tapi.segment_frames(iter(frames), W, H, use_flow=False,
+                                   dense_options=d, region_options=r,
+                                   device="cpu"))
+    exact = _compare_levels(got, want)
     print(f"segment_frames parity: "
           f"{'exact' if exact else 'boundary F >= 0.95 (float-order flip)'}")
 
 
-def test_use_flow_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tapi.segment_frames(iter(clip(1)), W, H, device="cpu")
+class _ServedFlow:
+    """Stands in for a FlowEngine: serves precomputed backward flows."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, flows, wrap=None):
+        self.flows = flows
+        self.wrap = wrap or (lambda f: f)
+
+    def compute(self, frame, idx):
+        f = self.flows[idx]
+        return None if f is None else self.wrap(f)
+
+
+def test_segment_frames_flow_matches_jax_given_same_flow(monkeypatch):
+    """The default use_flow=True path, stage by stage: both packages get
+    the same JAX-computed flow arrays (the port as FlowFields), which feed
+    the solver, connectedness and the flow descriptors; the per-level id
+    images must be exact."""
+    from video_segment_tpu.core import flow as jflow
+    from video_segment_tpu_torch.core import flow as tflow
+    from test_torch_dense import jax_flows
+    _cv2_lab(monkeypatch)
+    frames = clip()
+    flows = jax_flows(frames)
+    monkeypatch.setattr(jflow, "FlowEngine",
+                        lambda w, h: _ServedFlow(flows))
+    monkeypatch.setattr(tflow, "FlowEngine", lambda w, h, device: _ServedFlow(
+        flows, lambda f: tflow.FlowField(dev=torch.tensor(f))))
+    d, r = _options(use_flow=True)
+    want = list(japi.segment_frames(iter(frames), W, H, dense_options=d,
+                                    region_options=r))
+    stream = tapi.segment_frames(iter(frames), W, H, dense_options=d,
+                                 region_options=r, device="cpu")
+    got = list(stream)
+    assert stream.stage_seconds["flow"] >= 0.0
+    _compare_levels(got, want, exact_required=True)
+    # Flow reached the region stage: flow off gives another hierarchy.
+    d, r = _options(use_flow=False)
+    off = list(japi.segment_frames(iter(frames), W, H, use_flow=False,
+                                   dense_options=d, region_options=r))
+    lw, lo = _level_images(want, H, W), _level_images(off, H, W)
+    assert any(len(lw[f]) != len(lo[f])
+               or any(not np.array_equal(a, b) for a, b in zip(lw[f], lo[f]))
+               for f in lw)
+
+
+def test_segment_frames_flow_own_engines_match_jax(monkeypatch):
+    """Through the two public APIs with their defaults (use_flow=True),
+    each package computing its own TV-L1 flow (within 1e-3 px of each
+    other): exact, or boundary F >= 0.95 where a flow's truncation or a
+    float-order flip moves a decision."""
+    _cv2_lab(monkeypatch)
+    frames = clip()
+    d, r = _options(use_flow=True)
+    want = list(japi.segment_frames(iter(frames), W, H, dense_options=d,
+                                    region_options=r))
+    got = list(tapi.segment_frames(iter(frames), W, H, dense_options=d,
+                                   region_options=r, device="cpu"))
+    exact = _compare_levels(got, want)
+    print(f"segment_frames flow parity: "
+          f"{'exact' if exact else 'boundary F >= 0.95'}")
 
 
 def test_segment_video_writes_pb(tmp_path):
@@ -253,4 +443,31 @@ def test_segment_video_writes_pb(tmp_path):
     desc = proto.SegmentationDesc()
     desc.ParseFromString(reader.read_frame())
     assert (desc.frame_width, desc.frame_height) == (W, H)
+    assert len(desc.region) >= 2
+
+
+def test_segment_video_flow_writes_pb(tmp_path):
+    """segment_video with its default use_flow=True: the .pb reads back,
+    every frame fully covered and a hierarchy above level 0."""
+    import cv2
+    from video_segment_tpu import proto
+    from video_segment_tpu.dataio import seg_io
+    vid = str(tmp_path / "in.mp4")
+    wr = cv2.VideoWriter(vid, cv2.VideoWriter_fourcc(*"mp4v"), 10, (W, H))
+    for img in clip(8):
+        wr.write(img)
+    wr.release()
+    d, r = _options(use_flow=True)
+    out = tapi.segment_video(vid, str(tmp_path / "out.pb"), dense_options=d,
+                             region_options=r, device="cpu")
+    reader = seg_io.SegmentationReader(out)
+    assert reader.open_and_read_headers()
+    assert reader.num_frames == 8
+    for _ in range(8):
+        desc = proto.SegmentationDesc()
+        desc.ParseFromString(reader.read_frame())
+        assert (desc.frame_width, desc.frame_height) == (W, H)
+        area = sum(iv.right_x - iv.left_x + 1 for reg in desc.region
+                   for iv in reg.raster.scan_inter)
+        assert area == W * H
     assert len(desc.region) >= 2

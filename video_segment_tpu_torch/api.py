@@ -2,17 +2,20 @@
 
     from video_segment_tpu_torch.api import segment_frames, segment_video
 
-    for sf in segment_frames(frame_iter, w, h, use_flow=False):  # on CUDA
+    for sf in segment_frames(frame_iter, w, h):       # on CUDA, flow on
         ...
-    segment_video("clip.mp4", "clip.pb", use_flow=False)
+    segment_video("clip.mp4", "clip.pb")
 
 Same signatures as video_segment_tpu.api plus `device` (default "cuda";
-a machine without CUDA raises instead of falling back).  Optical flow is
-not ported yet: `use_flow=True` raises NotImplementedError.
+a machine without CUDA raises instead of falling back).  With `use_flow`
+(the default) a `core/flow.FlowEngine` on `device` computes each frame's
+backward TV-L1 flow, which feeds the solver's temporal edges, the dense
+stage's connectedness and the region stage's flow descriptors.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Iterable
 
 import numpy as np
@@ -20,11 +23,8 @@ import torch
 
 from video_segment_tpu.core.options import (DenseSegmentationOptions,
                                             RegionSegmentationOptions)
+from video_segment_tpu_torch import device as devmod
 from video_segment_tpu_torch.core import dense as dense_mod
-
-_NO_FLOW = ("optical flow is not ported yet (ROADMAP.md, Queue 1 item 9: "
-            "core/flow.py and the flow-displaced solver directions); pass "
-            "use_flow=False")
 
 
 def segment_frames(frames: Iterable[np.ndarray], frame_width: int,
@@ -39,8 +39,6 @@ def segment_frames(frames: Iterable[np.ndarray], frame_width: int,
     `device`, yielding SegFrame results (RLE regions + hierarchy on set
     starts).  The stage objects are built (and the arguments checked)
     before the first frame is consumed."""
-    if use_flow:
-        raise NotImplementedError(_NO_FLOW)
     dense = dense_mod.DenseSegmentation(
         dense_options or DenseSegmentationOptions(), frame_width,
         frame_height, device=device)
@@ -48,20 +46,27 @@ def segment_frames(frames: Iterable[np.ndarray], frame_width: int,
     if not over_segment_only:
         from video_segment_tpu_torch.core import region as region_mod
         region = region_mod.RegionSegmentation(
-            region_options or RegionSegmentationOptions(use_flow=False),
+            region_options or RegionSegmentationOptions(use_flow=use_flow),
             frame_width, frame_height, device=device)
-    return SegmentStream(frames, dense, region)
+    flow = None
+    if use_flow:
+        from video_segment_tpu_torch.core import flow as flow_mod
+        flow = flow_mod.FlowEngine(frame_width, frame_height, device=device)
+    return SegmentStream(frames, dense, region, flow)
 
 
 class SegmentStream:
     """Iterator over the SegFrames of one `segment_frames` call, with the
     pipeline's counters: `stage_seconds` (ingest+preseg, chunk solve, host
-    tail, region) and `solve_diag` (per chunk solve, per schedule level:
-    [table cap, merge rounds, live regions])."""
+    tail, region, and flow when a flow engine runs) and `solve_diag` (per
+    chunk solve, per schedule level: [table cap, merge rounds, live
+    regions])."""
 
-    def __init__(self, frames, dense, region):
+    def __init__(self, frames, dense, region, flow=None):
         self.dense = dense
         self.region = region
+        self.flow = flow
+        self._flow_seconds = 0.0
         self._gen = self._run(frames)
 
     def __iter__(self):
@@ -75,6 +80,8 @@ class SegmentStream:
         out = dict(self.dense.stage_seconds)
         if self.region is not None:
             out.update(self.region.stage_seconds)
+        if self.flow is not None:
+            out["flow"] = self._flow_seconds
         return out
 
     @property
@@ -82,11 +89,17 @@ class SegmentStream:
         return self.dense.solve_diag
 
     def _run(self, frames):
-        dense, region = self.dense, self.region
+        dense, region, flow = self.dense, self.region, self.flow
         for idx, frame in enumerate(frames):
+            fl = None
+            if flow is not None:
+                t0 = time.monotonic()
+                fl = flow.compute(frame, idx)
+                devmod.synchronize(flow.device)
+                self._flow_seconds += time.monotonic() - t0
             if region is not None:
-                region.add_frame(idx, frame)
-            out = dense.process_frame(False, frame)
+                region.add_frame(idx, frame, fl)
+            out = dense.process_frame(False, frame, fl)
             if region is not None:
                 out = region.process_frames(False, out)
             yield from out
@@ -106,8 +119,6 @@ def segment_video(input_path: str, output_path: str | None = None, *,
     """Segment a video file end to end; writes and returns the .pb path.
     Decoding and the .pb writer are the JAX package's host modules (cv2,
     protobuf)."""
-    if use_flow:
-        raise NotImplementedError(_NO_FLOW)
     from video_segment_tpu.dataio import emit, seg_io, video
 
     reader = video.VideoReader(
@@ -120,7 +131,7 @@ def segment_video(input_path: str, output_path: str | None = None, *,
     try:
         n = 0
         for sf in segment_frames(reader, reader.info.width,
-                                 reader.info.height, use_flow=False,
+                                 reader.info.height, use_flow=use_flow,
                                  over_segment_only=over_segment_only,
                                  dense_options=dense_options,
                                  region_options=region_options,

@@ -6,8 +6,10 @@ appearance distances scaled by the size penalizer, counterpart-constraint
 forcing, and static phases of shrinking table size with per-subround
 re-evaluation in the small phases.  The JAX program's `while_loop` /
 `fori_loop` levels become Python loops (one host sync per subround).
-Flow descriptors are not ported: with no flow frames the flow distance is
-zero, as in the JAX package with flow off.
+Edge weights combine the appearance chi-square with the per-frame flow
+chi-square (`edge_flow_distance`) when flow tables are given and
+`use_flow` is set; per-frame flow histograms and counts merge with the
+other statistics.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ _DQ = 1 << 20  # distance quantization for integer keys
 class AggloState(NamedTuple):
     label: torch.Tensor      # (C,) slot -> current root (C = phase cap)
     hist: torch.Tensor       # (C,B) color histograms (unnormalized)
+    flow_hist: torch.Tensor  # (T,C,FB) per-frame flow histograms
+    flow_cnt: torch.Tensor   # (T,C) per-frame flow vector counts
     sizes: torch.Tensor      # (C,) f32
 
 
@@ -40,14 +44,20 @@ def _wrap32(x: int) -> int:
     return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
-def _eval_distances(state: AggloState, edges, evalid, inv_median, penalizer):
+def _eval_distances(state: AggloState, edges, evalid, inv_median, use_flow,
+                    penalizer):
     ra = state.label.index_select(0, edges[:, 0])
     rb = state.label.index_select(0, edges[:, 1])
-    color_d = hops.edge_color_distance(state.hist,
-                                       torch.stack([ra, rb], dim=1))
-    d = hops.combined_distance(color_d, None, state.sizes[ra.long()],
+    pairs = torch.stack([ra, rb], dim=1)
+    color_d = hops.edge_color_distance(state.hist, pairs)
+    # Without flow tables, or with flow disabled, the JAX package combines
+    # a zero flow distance, which leaves the appearance term unchanged.
+    use_flow = use_flow and state.flow_hist.shape[0] > 0
+    flow_d = (hops.edge_flow_distance(state.flow_hist, state.flow_cnt, pairs)
+              if use_flow else None)
+    d = hops.combined_distance(color_d, flow_d, state.sizes[ra.long()],
                                state.sizes[rb.long()], inv_median,
-                               penalizer=penalizer, use_flow=False)
+                               penalizer=penalizer, use_flow=use_flow)
     return torch.where(evalid & (ra != rb), d, torch.inf)
 
 
@@ -98,8 +108,11 @@ def _reaggregate(state: AggloState) -> AggloState:
     """Re-aggregate every statistics table onto current roots."""
     r = state.label.shape[0]
     seg = state.label
-    return AggloState(state.label, seg_sum(state.hist, seg, r),
-                      seg_sum(state.sizes, seg, r))
+    return AggloState(
+        state.label, seg_sum(state.hist, seg, r),
+        torch.zeros_like(state.flow_hist).index_add_(1, seg, state.flow_hist),
+        torch.zeros_like(state.flow_cnt).index_add_(1, seg, state.flow_cnt),
+        seg_sum(state.sizes, seg, r))
 
 
 def _force_constraints(label, constr, b2c):
@@ -128,7 +141,7 @@ def _force_constraints(label, constr, b2c):
 
 def _level_step(state: AggloState, edges, evalid, constr, b2c,
                 is_level0: bool, max_region_num: int, min_region_num: int,
-                cutoff_fraction: float, penalizer: float,
+                cutoff_fraction: float, use_flow: bool, penalizer: float,
                 max_subrounds: int, reeval: bool):
     """One hierarchy level (see the JAX `_level_step`)."""
     cap = state.label.shape[0]
@@ -165,14 +178,16 @@ def _level_step(state: AggloState, edges, evalid, constr, b2c,
     if reeval:
         for k in range(max_subrounds):
             st_k = _reaggregate(state._replace(label=label))
-            d = _eval_distances(st_k, edges, evalid, inv_median, penalizer)
+            d = _eval_distances(st_k, edges, evalid, inv_median, use_flow,
+                                penalizer)
             rem_rounds = max_subrounds - k
             quota = (budget_total - merged + rem_rounds - 1) // rem_rounds
             label, moved = _label_subround(label, edges, d, quota,
                                            (k % 2) == 0)
             merged += moved
     else:
-        dd = _eval_distances(state, edges, evalid, inv_median, penalizer)
+        dd = _eval_distances(state, edges, evalid, inv_median, use_flow,
+                             penalizer)
         for k in range(max_subrounds):
             label, moved = _label_subround(label, edges, dd,
                                            budget_total - merged,
@@ -207,9 +222,12 @@ def _compact_phase(state: AggloState, b2c, c2o, edges, evalid,
                          torch.where(ok, slots, 0), "amax")
     valid_new = _arange(new_cap, root) < n_active
     vf = valid_new.to(torch.float32)
-    new_state = AggloState(_arange(new_cap, root),
-                           state.hist.index_select(0, inv) * vf[:, None],
-                           state.sizes.index_select(0, inv) * vf)
+    new_state = AggloState(
+        _arange(new_cap, root),
+        state.hist.index_select(0, inv) * vf[:, None],
+        state.flow_hist.index_select(1, inv) * vf[None, :, None],
+        state.flow_cnt.index_select(1, inv) * vf[None, :],
+        state.sizes.index_select(0, inv) * vf)
     b2c_new = cidx.index_select(0, root.index_select(0, b2c))
     c2o_new = c2o.index_select(0, inv)
 
@@ -252,8 +270,8 @@ def _phase_specs(rcap: int, ecap: int, reeval_cap: int, floor: int,
 
 def _run_all_levels(state: AggloState, edges, evalid, constr_stack,
                     max_region_num, min_region_num, cutoff_fraction,
-                    penalizer, max_subrounds: int, max_levels: int,
-                    phases: tuple):
+                    use_flow, penalizer, max_subrounds: int,
+                    max_levels: int, phases: tuple):
     """Every hierarchy level over the static shrinking phases.  Returns
     (per-level labels over the original slots, per-level active counts)."""
     rcap = state.label.shape[0]
@@ -274,8 +292,8 @@ def _run_all_levels(state: AggloState, edges, evalid, constr_stack,
                and (not next_cap or active >= next_cap)):
             state, active = _level_step(
                 state, edges, evalid, constr_stack[lvl], b2c, lvl == 0,
-                max_region_num, min_region_num, cutoff_fraction, penalizer,
-                max_subrounds, reeval)
+                max_region_num, min_region_num, cutoff_fraction, use_flow,
+                penalizer, max_subrounds, reeval)
             labels_out[lvl] = c2o.index_select(
                 0, state.label.index_select(0, b2c))
             actives[lvl] = active
@@ -292,13 +310,10 @@ def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
                 edge_degree: int = 16,
                 device: str | torch.device = "cuda"):
     """Run the full level loop on `device`; returns a list of per-level
-    (R,) root arrays (numpy).  Arguments as in the JAX `agglomerate`;
-    flow histograms with frames and windowed appearance raise
-    NotImplementedError."""
+    (R,) root arrays (numpy).  Arguments as in the JAX `agglomerate`
+    (flow_hist (T,R,FB), flow_cnt (T,R); T=0 without flow); windowed
+    appearance raises NotImplementedError."""
     dev = devmod.resolve(device)
-    if np.asarray(flow_hist).shape[0] > 0 and use_flow:
-        raise NotImplementedError("flow descriptors are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 9)")
     if win_hist is not None and np.asarray(win_hist).shape[0] > 0:
         raise NotImplementedError("windowed appearance histograms are not "
                                   "ported yet (ROADMAP.md, Queue 1 item 11)")
@@ -306,6 +321,8 @@ def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
     state = AggloState(
         _arange(r, torch.empty(0, device=dev)),
         torch.as_tensor(np.asarray(hist, np.float32), device=dev),
+        torch.as_tensor(np.asarray(flow_hist, np.float32), device=dev),
+        torch.as_tensor(np.asarray(flow_cnt, np.float32), device=dev),
         torch.as_tensor(np.asarray(sizes, np.float32), device=dev))
     edges = np.asarray(edges, np.int32)
     if edges.shape[0] == 0:
@@ -326,8 +343,8 @@ def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
                           edge_degree=edge_degree)
     labels_out, actives = _run_all_levels(
         state, edges, evalid, constr_stack, max_region_num, min_region_num,
-        float(np.float32(cutoff_fraction)), float(np.float32(penalizer)),
-        max_subrounds, max_levels, phases)
+        float(np.float32(cutoff_fraction)), bool(use_flow),
+        float(np.float32(penalizer)), max_subrounds, max_levels, phases)
 
     levels = []
     active = num_regions

@@ -10,10 +10,13 @@ Pre-segmentation: "felz" runs the tile felz pre-solve (K1) per frame at
 ingest; "flood" runs the tile flood (K4) over each padded chunk volume
 when the chunk is solved.  "auto" means "felz" on every device, so CPU
 runs execute the algorithm the card runs (the JAX package picks "flood"
-off a TPU).  Scope: one device, unbanded solves, no optical flow; banded
-chunking and the mesh solve raise NotImplementedError.  The host tail (N4 fix
-result, compaction, connectedness, id assignment, RLE) reuses the JAX-free
-host modules of video_segment_tpu.
+off a TPU).  With optical flow (a backward flow field per frame after the
+first, `core/flow.FlowField`s or arrays) the solver's temporal edges are
+displaced along it and connectedness advects centroids by it.  Scope: one
+device, unbanded solves; banded chunking and the mesh solve raise
+NotImplementedError.  The host tail (N4 fix result, compaction,
+connectedness, id assignment, RLE) reuses the JAX-free host modules of
+video_segment_tpu.
 """
 
 from __future__ import annotations
@@ -134,7 +137,7 @@ class DenseSegmentation:
             bands=1,
             force_merge_weight=0.002 if options.color_distance == "l1"
             else 0.001)
-        ov._check_scope(self._params, None)
+        ov._check_scope(self._params)
         if options.preseg_mode not in ("auto", "felz", "flood"):
             raise ValueError(f"unknown preseg_mode {options.preseg_mode!r}")
         self._preseg_mode = ("felz" if options.preseg_mode == "auto"
@@ -147,6 +150,10 @@ class DenseSegmentation:
 
         self._buffer: list[torch.Tensor] = []   # smoothed (H,W,3)
         self._preseg_buffer: list = []          # per-frame K1 results (felz)
+        # _flow_buffer[i]: backward flow of buffer frame i (None only for
+        # the first video frame); FlowFields stay device-resident.
+        self._flow_buffer: list = []
+        self._has_flow = False
         self._chunk_start = 0
         self._chunk_id = 0
         self._max_region_id = 0
@@ -168,9 +175,10 @@ class DenseSegmentation:
         """Adopt streaming state held between chunks (e.g. a JAX
         DenseSegmentation's): `overlap_gids` (list of (H,W) int64 global-id
         planes), `max_region_id`, `chunk_start`, `chunk_id`,
-        `num_output_frames`, and `buffer` (the buffered preprocessed
-        (H,W,3) float32 frames, whose pre-segmentations are recomputed
-        here in felz mode)."""
+        `num_output_frames`, `buffer` (the buffered preprocessed (H,W,3)
+        float32 frames, whose pre-segmentations are recomputed here in
+        felz mode), and optionally `flow_buffer` (per buffered frame, an
+        (H,W,2) backward flow or None) with `has_flow`."""
         self.join()
         self._overlap_gids = [np.asarray(g, np.int64)
                               for g in state["overlap_gids"]]
@@ -183,6 +191,10 @@ class DenseSegmentation:
                         for f in state["buffer"]]
         self._preseg_buffer = ([self._preseg_frame(b) for b in self._buffer]
                                if self._preseg_mode == "felz" else [])
+        self._flow_buffer = [None if f is None else np.asarray(f, np.float32)
+                             for f in state.get("flow_buffer",
+                                                [None] * len(self._buffer))]
+        self._has_flow = bool(state.get("has_flow", False))
 
     # -- preprocessing ----------------------------------------------------
 
@@ -217,23 +229,28 @@ class DenseSegmentation:
     def process_frame(self, flush: bool,
                       frame_bgr_u8: np.ndarray | None = None,
                       flow=None) -> list[SegFrame]:
-        if flow is not None:
-            raise NotImplementedError("optical flow is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 9)")
+        """Ingest a frame (with its backward flow, if any) and return the
+        SegFrames that became ready; `flush` closes the stream."""
         if frame_bgr_u8 is not None:
-            self._ingest(frame_bgr_u8)
+            self._ingest(frame_bgr_u8, flow)
         if self._chunk_ready(flush):
             return self._segment_chunk(flush)
         if flush:
             return self._drain_pending()
         return []
 
-    def _ingest(self, frame_bgr_u8: np.ndarray) -> None:
+    def _ingest(self, frame_bgr_u8: np.ndarray, flow) -> None:
         t0 = time.monotonic()
         img = self.preprocess(frame_bgr_u8)
         self._buffer.append(img)
         if self._preseg_mode == "felz":
             self._preseg_buffer.append(self._preseg_frame(img))
+        if flow is None or hasattr(flow, "numpy_f16"):
+            self._flow_buffer.append(flow)
+        else:
+            self._flow_buffer.append(np.asarray(flow, np.float32))
+        if flow is not None:
+            self._has_flow = True
         self._stage_done("ingest_preseg", t0)
 
     def _chunk_ready(self, flush: bool) -> bool:
@@ -272,6 +289,17 @@ class DenseSegmentation:
         t_solve = t_small if t <= t_small else self.options.chunk_size + 1
         pad = t_solve - t
         vol = torch.stack(self._buffer + [self._buffer[-1]] * pad)
+
+        flow = None
+        if self._has_flow and t > 1:
+            tail = self._flow_buffer[1:t]
+            if any(f is None for f in tail):
+                raise ValueError("flow must be passed for every frame or none")
+            # FlowFields stack on the device (no host round trip); pad
+            # frames get zero flow.
+            devs = [f.device().to(dev) if hasattr(f, "numpy_f16")
+                    else torch.tensor(f, device=dev) for f in tail]
+            flow = torch.stack(devs + [torch.zeros_like(devs[0])] * pad)
 
         tile_fin = tile_stats = None
         if self._preseg_mode == "felz":
@@ -357,14 +385,15 @@ class DenseSegmentation:
 
         head_planes = (1 + self.constraint_frames if self._overlap_gids
                        else 0)
-        return dict(t=t, t_solve=t_solve, vol=vol,
+        return dict(t=t, t_solve=t_solve, vol=vol, flow=flow,
                     constraints=constraints, init_label=init_label,
                     frozen=frozen, tile_fin=tile_fin, tile_stats=tile_stats,
                     params=params, head_planes=head_planes,
                     cid_to_gid=cid_to_gid, t_pre0=t_pre0)
 
     def _dispatch_solve(self, prep: dict) -> ov.OversegResult:
-        res = ov.oversegment(prep["vol"], constraints=prep["constraints"],
+        res = ov.oversegment(prep["vol"], flow=prep["flow"],
+                             constraints=prep["constraints"],
                              init_label=prep["init_label"],
                              frozen=prep["frozen"], fin=prep["tile_fin"],
                              params=prep["params"],
@@ -392,9 +421,18 @@ class DenseSegmentation:
         t_solve1 = self._stage_done("chunk_solve", prep["t_pre0"])
 
         last_output = (t - 1) if flush else (t - self.overlap_frames)
+        flow_np = None
+        if (self.options.enforce_spatial_connectedness and self._has_flow
+                and t > 1):
+            # Centroid advection samples a few points per frame: the
+            # half-width (f16, batched) download is far inside its
+            # tolerance (4% of the frame diagonal).
+            flow_np = np.stack([
+                f.numpy_f16() if hasattr(f, "numpy_f16") else np.asarray(f)
+                for f in self._flow_buffer[1:t]])
         ctx = dict(labels=labels, slotvol=slotvol, lut=lut, res=res,
                    cid_to_gid=cid_to_gid, flush=flush, t=t,
-                   last_output=last_output,
+                   last_output=last_output, flow_np=flow_np,
                    had_constraints=bool(self._overlap_gids),
                    chunk_start=self._chunk_start, chunk_id=self._chunk_id,
                    t0=t_solve1)
@@ -403,10 +441,12 @@ class DenseSegmentation:
         if flush:
             self._buffer.clear()
             self._preseg_buffer.clear()
+            self._flow_buffer.clear()
             self._chunk_start = 0
         else:
             self._buffer = self._buffer[last_output:]
             self._preseg_buffer = self._preseg_buffer[last_output:]
+            self._flow_buffer = self._flow_buffer[last_output:]
             self._chunk_start = 1
         self._chunk_id += 1
 
@@ -454,7 +494,7 @@ class DenseSegmentation:
                 from video_segment_tpu.core import connectedness
                 compact, n2, _origin = \
                     connectedness.enforce_spatial_connectedness(
-                        compact, num_regions, flow=None)
+                        compact, num_regions, flow=ctx["flow_np"])
                 if n2 > num_regions:
                     # Split-off tubes are new, unconstrained regions.
                     constr_of_region = np.concatenate(

@@ -7,14 +7,15 @@ Boruvka merge rounds to a fixed point over an O(regions) edge table, the
 mean-colour gate with the force-merge shortcut, level-end finalization /
 unconstraining, min-region-size forcing and the final constraint
 association.  Scope: the edge-table solver (`bands=1`, spatial +
-undisplaced temporal directions), with the supertile-gated early levels
+temporal directions, the temporal ones displaced along backward optical
+flow when a flow volume is given), with the supertile-gated early levels
 (`st_levels>0`) either as K3 launches (`ops/tile_table`, the default) or
 as masked global rounds (`st_kernel=False`).  The two admit the same
 merges; they differ only in the float order of the region statistics, in
 seeds beyond `st_slots` (unmerged in K3) and in a table recompaction that
 falls inside the gated levels (the masked rounds then see the shrunk
-table's top-K edges).  Flow-displaced edges, banded solves, two-stage
-solves, the gradient trait and non-default descriptors raise
+table's top-K edges).  Banded solves, two-stage solves, the gradient
+trait and non-default descriptors raise
 NotImplementedError; the v1 pixel solver (`edge_table=False`) is not
 ported.
 
@@ -213,12 +214,12 @@ def _bucketize(d):
                        NUM_BUCKETS - 1)
 
 
-def _shift_dir_list(temporal: bool):
-    """[(dt,dy,dx)] of the extraction's directions: forward spatial, plus
-    every backward temporal one when the volume has more than one frame
-    (flow absent, so temporal edges are undisplaced)."""
+def _shift_dir_list(temporal_undisplaced: bool):
+    """[(dt,dy,dx)] of the shift-expressible directions: forward spatial,
+    plus every backward temporal one when the volume has more than one
+    frame and no flow (with flow they are displaced: `_fold_dirs_raw`)."""
     dirs = [(0, dy, dx) for dy, dx in SPATIAL_FWD]
-    if temporal:
+    if temporal_undisplaced:
         dirs += [(-1, dy, dx) for dy, dx in TEMPORAL_DIRS]
     return dirs
 
@@ -230,16 +231,18 @@ class _RawDir(NamedTuple):
     nb_label: torch.Tensor
 
 
-def _fold_dirs_raw(feats, label3, metric, fold_fn, carry):
+def _fold_dirs_raw(feats, label3, metric, fold_fn, carry, flow=None):
     """Fold `fold_fn(carry, _RawDir) -> carry` over every extraction
-    direction (a Python loop over halo-padded views of the (T,H,W,3) color
-    volume, the bucket source)."""
+    direction: the shift-expressible ones as halo-padded views of the
+    (T,H,W,3) color volume (the bucket source), then, with `flow`
+    ((T-1,H,W,2) backward flow of frames 1..T-1), the nine flow-displaced
+    backward directions, in TEMPORAL_DIRS order."""
     t, h, w, _ = feats.shape
     dev = feats.device
     ys = torch.arange(h, device=dev)[None, :, None]
     xs = torch.arange(w, device=dev)[None, None, :]
     ts = torch.arange(t, device=dev)[:, None, None]
-    dirs = _shift_dir_list(t > 1)
+    dirs = _shift_dir_list(flow is None and t > 1)
     fpad = torch.nn.functional.pad(feats, (0, 0, 1, 1, 1, 1, 1, 1))
     lpad = torch.nn.functional.pad(label3, (1, 1, 1, 1, 1, 1))
     for dt, dy, dx in dirs:
@@ -250,6 +253,51 @@ def _fold_dirs_raw(feats, label3, metric, fold_fn, carry):
         bucket = _bucketize(_dist(feats, fn, metric))
         carry = fold_fn(carry, _RawDir(valid=valid, bucket=bucket,
                                        nb_label=labn))
+    if flow is None or t == 1:
+        return carry
+    return _fold_flow_dirs(feats, label3, flow, metric, fold_fn, carry)
+
+
+def _fold_flow_dirs(feats, label3, flow, metric, fold_fn, carry):
+    """Flow-displaced backward edges: voxel (t,y,x), t>=1, anchors at
+    clamp(trunc((y,x)+flow[t-1])) in frame t-1 (C truncation toward zero:
+    float32 sums, then a truncating int32 cast).  The nine neighbours are
+    the flat indices anchor + dy*w + dx clamped to the frame, gathered in
+    one stacked gather (so at x = w-1 an index may wrap into the next row,
+    as in JAX); validity is tested on the anchor-relative (y,x) only.
+    Frame 0 has no backward partner: its rows are invalid."""
+    t, h, w, nf = feats.shape
+    n = h * w
+    dev = feats.device
+    ysf = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    xsf = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    px = torch.clamp((xsf + flow[..., 0]).to(torch.int32), 0, w - 1)
+    py = torch.clamp((ysf + flow[..., 1]).to(torch.int32), 0, h - 1)
+    anchor = py * w + px                                  # (T-1,H,W)
+    offs = torch.tensor([dy * w + dx for dy, dx in TEMPORAL_DIRS],
+                        dtype=torch.int32, device=dev)
+    flat_all = torch.clamp(anchor[None] + offs[:, None, None, None],
+                           0, n - 1)                      # (9,T-1,H,W)
+    # Global voxel index into frames 0..T-2.
+    gidx = (flat_all.long() + (torch.arange(t - 1, device=dev) * n)
+            [None, :, None, None]).reshape(-1)
+    fn_all = feats[:-1].reshape(-1, nf).index_select(0, gidx) \
+        .reshape(len(TEMPORAL_DIRS), t - 1, h, w, nf)
+    labn_all = label3[:-1].reshape(-1).index_select(0, gidx) \
+        .reshape(len(TEMPORAL_DIRS), t - 1, h, w)
+
+    def pad_first(x, fill=0):
+        return torch.cat([torch.full((1,) + tuple(x.shape[1:]), fill,
+                                     dtype=x.dtype, device=dev), x])
+
+    for k, (dy, dx) in enumerate(TEMPORAL_DIRS):
+        ny = py + dy
+        nx = px + dx
+        valid2 = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
+        bucket = _bucketize(_dist(feats[1:], fn_all[k], metric))
+        carry = fold_fn(carry, _RawDir(valid=pad_first(valid2, False),
+                                       bucket=pad_first(bucket),
+                                       nb_label=pad_first(labn_all[k])))
     return carry
 
 
@@ -327,15 +375,18 @@ def _pack_spec(nseg: int):
 
 
 def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
-                   orig_slot=None, head_planes: int = 0):
-    """One-time region-adjacency extraction (see the JAX docstring).
+                   orig_slot=None, head_planes: int = 0, flow=None):
+    """One-time region-adjacency extraction (see the JAX docstring);
+    `flow` displaces the temporal directions (`_fold_dirs_raw`).
 
     Returns packed (2*n_dirs, nseg) int32, I32MAX where absent: forward
     per-(slot, direction) minima in rows [0, n_dirs), the reverse view
     re-scattered in table space in rows [n_dirs, 2*n_dirs).  With the tile
     path (p.extract_tile not False and init_label/orig_slot given) the
     forward minima reduce per (8,128) tile in `tile_reduce_min` (K2) and
-    gather from root cells; head planes keep the scatter path.
+    gather from root cells; head planes keep the scatter path.  Flow
+    partners may lie in another tile (or frame t-1 of another tile): only
+    the own label must be tile-local, which the preseg guarantees.
     """
     t, h, w, _ = vol.shape
     dev = vol.device
@@ -369,7 +420,7 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
                                       memb_flat[:head_n], nseg)
             return k + 1
 
-        _fold_dirs_raw(vol, memb3, p.metric, fold, 0)
+        _fold_dirs_raw(vol, memb3, p.metric, fold, 0, flow)
         if head_planes:
             # Head pixels' labels are not tile-local: their reduction is
             # the scatter above, never the tile pass.
@@ -395,7 +446,7 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
             tab[k] = seg_min(packed(d).reshape(-1), memb_flat, nseg)
             return k + 1
 
-        _fold_dirs_raw(vol, memb3, p.metric, fold, 0)
+        _fold_dirs_raw(vol, memb3, p.metric, fold, 0, flow)
 
     # Reverse view: column k's entry at slot a, packed (bucket, partner b),
     # re-scatters as (bucket, a) onto slot b.  Partner ids are clamped into
@@ -654,7 +705,7 @@ def _init_table(vol, init_label, constr_init, frozen_init, fin_init,
 def _solve_edge_table(vol, init_label, constr_init, frozen_init,
                       fin_init, params, n_pix, thetas, level_rounds,
                       has_constraints, cell_stats=None,
-                      head_planes: int = 0):
+                      head_planes: int = 0, flow=None):
     """Edge-table phases: table init, edge extraction, table solve."""
     t, h, w, _ = vol.shape
     r_cap = _table_cap(params, n_pix, h, w, has_constraints)
@@ -665,7 +716,7 @@ def _solve_edge_table(vol, init_label, constr_init, frozen_init,
                                       head_planes)
     tab = _extract_edges(memb.reshape(t, h, w), vol, nseg, r_cap, params,
                          init_label=init_label, orig_slot=orig_slot,
-                         head_planes=head_planes)
+                         head_planes=head_planes, flow=flow)
     return _finish_table_solve(ts, tab, memb, orig_slot, init_label,
                                (t, h, w), params, thetas, level_rounds,
                                has_constraints)
@@ -1024,10 +1075,8 @@ def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
         diag=diag)
 
 
-def _check_scope(params: OversegParams, flow) -> None:
+def _check_scope(params: OversegParams) -> None:
     """Raise for the solver configurations this port does not cover."""
-    if flow is not None:
-        raise NotImplementedError(f"optical flow: {_ROADMAP} item 9")
     if not params.edge_table:
         raise NotImplementedError(
             "the v1 pixel solver (edge_table=False) is not ported "
@@ -1062,13 +1111,14 @@ def oversegment(vol, flow=None, constraints=None, init_label=None,
     """Over-segment a chunk volume (the edge-table solver).
 
     Args mirror the JAX `oversegment`: vol (T,H,W,3) float32 smoothed BGR
-    in [0,1]; optional (T,H,W) constraints (int, -1 free), init_label,
+    in [0,1]; optional (T-1,H,W,2) float32 backward `flow` of frames
+    1..T-1; optional (T,H,W) constraints (int, -1 free), init_label,
     frozen (bool), fin (int levels or bool); `cell_stats` (size, c0, c1,
     c2) cell-positioned at root voxels as `tile_felzenszwalb` exports;
     `head_planes` leading planes of host-built constraint groups.  All
     tensors live on vol's device; the solve runs there.
     """
-    _check_scope(params, flow)
+    _check_scope(params)
     t, h, w, _ = vol.shape
     n = t * h * w
     dev = vol.device
@@ -1094,4 +1144,5 @@ def oversegment(vol, flow=None, constraints=None, init_label=None,
                     + [params.max_final_rounds])
     return _solve_edge_table(vol, init_label, constr_init, frozen_init,
                              fin_init, params, n, thetas, level_rounds,
-                             has_constraints, cell_stats, head_planes)
+                             has_constraints, cell_stats, head_planes,
+                             None if flow is None else flow.to(torch.float32))

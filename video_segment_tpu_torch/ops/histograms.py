@@ -1,14 +1,15 @@
 """Region descriptor histograms and distances on torch tensors.
 
 Port of video_segment_tpu/ops/histograms.py (formulas and reference
-citations there): Lab bin indices, scatter-added (R, B) histogram tables,
-chi-square over L1-normalized histograms, and the size-penalized
-SquaredOR combined distance.  Flow histogram distances are not ported
-(flow is off in this slice: with no flow frames agglomeration never asks
-for them).
+citations there): Lab and flow-angle bin indices, scatter-added (R, B)
+histogram tables, chi-square over L1-normalized histograms, the per-frame
+weighted flow distance, and the size-penalized SquaredOR combined
+distance.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -21,6 +22,14 @@ def lab_bins(lab_u8: torch.Tensor, lum_bins: int = 10,
     a = (lab[..., 1] * color_bins) >> 8
     b = (lab[..., 2] * color_bins) >> 8
     return (l * color_bins + a) * color_bins + b
+
+
+def flow_bins(flow: torch.Tensor, angle_bins: int = 16):
+    """(...,2) flow -> (bin index, magnitude) (histograms.cpp:471-479)."""
+    ang = (torch.atan2(flow[..., 1], flow[..., 0])
+           / (2.0 * math.pi + 1e-4) + 0.5)
+    b = torch.clamp((ang * angle_bins).to(torch.int32), 0, angle_bins - 1)
+    return b, torch.hypot(flow[..., 0], flow[..., 1])
 
 
 def accumulate_histogram(hist: torch.Tensor, labels: torch.Tensor,
@@ -61,6 +70,30 @@ def edge_color_distance(hist: torch.Tensor, edges: torch.Tensor,
         out.append(chi_square(ha, hb))
     if not out:
         return torch.zeros(0, dtype=hist.dtype, device=hist.device)
+    return torch.cat(out)
+
+
+def edge_flow_distance(flow_hist: torch.Tensor, flow_cnt: torch.Tensor,
+                       edges: torch.Tensor, batch: int = 8192) -> torch.Tensor:
+    """Weighted per-frame chi^2 flow distance for (E,2) pairs over (T,R,B)
+    magnitude-weighted angle histograms and (T,R) vector counts: frames
+    weigh min(count_a, count_b), frames where either side is absent
+    contribute nothing (region_descriptor.cpp:465-498).  Windows are
+    gathered along the region axis, (T, batch, B)."""
+    out = []
+    for s in range(0, edges.shape[0], batch):
+        chunk = edges[s:s + batch]
+        ha = normalize_l1(flow_hist.index_select(1, chunk[:, 0]))
+        hb = normalize_l1(flow_hist.index_select(1, chunk[:, 1]))
+        d = chi_square(ha, hb)                                # (T, b)
+        wa = flow_cnt.index_select(1, chunk[:, 0])
+        wb = flow_cnt.index_select(1, chunk[:, 1])
+        w = torch.minimum(wa, wb) * (wa > 0) * (wb > 0)
+        ws = w.sum(dim=0)
+        out.append(torch.where(ws > 0, (d * w).sum(dim=0)
+                               / torch.clamp(ws, min=1.0), 0.0))
+    if not out:
+        return torch.zeros(0, dtype=flow_hist.dtype, device=flow_hist.device)
     return torch.cat(out)
 
 
