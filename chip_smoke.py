@@ -6,9 +6,14 @@ Phases (each prints one line; any failure exits non-zero):
  1. environment: torch / CUDA versions, card name, power limit;
  2. build: the four hand-written kernels from video_segment_tpu_torch/csrc
     (one nvcc each, sm_90a, all started together) and the native host
-    helpers (g++);
- 3. K1 tile_felzenszwalb vs its plain PyTorch version on the card;
- 4. K2 tile_reduce_min vs its plain PyTorch version on the card;
+    helpers (g++); a resource line per kernel (registers, spills, shared
+    memory, CTAs per SM from the occupancy API, waves at the main path's
+    grid);
+ 3. K1 tile_felzenszwalb vs its plain PyTorch version on the card, bit for
+    bit; ms per 272x480 frame on a textured, a clip and a flat frame;
+ 4. K2 tile_reduce_min vs its plain PyTorch version on the card, and the
+    time of one library call (scatter_reduce_ "amin" plus a gather) that
+    computes the same minima;
  5. the main path: segment_frames(use_flow=False, device="cuda") over a
     seeded 60-frame 272x480 synthetic clip (bench config 2's geometry),
     with launch counts proving K1 and K2 ran;
@@ -26,9 +31,12 @@ Phases (each prints one line; any failure exits non-zero):
     6), card vs CPU, and the panning background's recovered motion;
 13. the flow path: segment_frames(use_flow=True, device="cuda") over 41
     frames, launch counts proving K1 and K2 ran;
-14. the flow dense stage, card vs CPU on the same host flow arrays.
-Then a JSON line of per-kernel results, the card's name and power limit
-from nvidia-smi, and the final {"ok": true, ...} line.
+14. the flow dense stage, card vs CPU on the same host flow arrays;
+15. no module of the JAX package (video_segment_tpu) and no jax was
+    imported.
+Then a JSON line of per-kernel results (time, launches on the main path,
+bound, plain and library times), the card's name and power limit from
+nvidia-smi, and the final {"ok": true, ...} line.
 """
 
 from __future__ import annotations
@@ -45,6 +53,12 @@ H, W = 272, 480
 N_FRAMES = 60
 N_PATH_FRAMES = 41   # the flood and supertile paths: 3 chunk solves
 KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table")
+
+# Peak rates of one H100 SXM for the bounds: HBM bytes/s and non-tensor
+# operations/s (float32 and 32-bit integer 67e12, float64 34e12, from the
+# card's data sheet).
+HBM_BYTES_S = 3.35e12
+OPS_S = {"f32": 67e12, "i32": 67e12, "f64": 34e12}
 
 
 def log(phase: str, msg: str) -> None:
@@ -65,6 +79,41 @@ def cuda_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+_cycles_per_ms = None
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean milliseconds of fn() on the card with its launches back to
+    back: every call is queued behind a sleep kernel before the first one
+    runs.  `cuda_ms` times calls as the host issues them, so a kernel that
+    is shorter than its wrapper's host work reads as the host's time."""
+    global _cycles_per_ms
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if _cycles_per_ms is None:
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _cycles_per_ms = 10 ** 7 / start.elapsed_time(end)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    # Twice the host's time to issue the calls, plus 5 ms.
+    torch.cuda._sleep(int((2 * host_ms + 5) * _cycles_per_ms))
     start.record()
     for _ in range(iters):
         fn()
@@ -194,6 +243,54 @@ def check_stream(out, stream, n_frames: int) -> list:
     return sets
 
 
+def bound(nbytes: float, ops: dict) -> tuple:
+    """Least time (ms) the card could take: the larger of the bytes over
+    the HBM rate and the operations over their type's peak rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = sum(n / OPS_S[k] for k, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def resource_line(name: str, ctas: int) -> str:
+    from video_segment_tpu_torch import _build
+    r = _build.resources(name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = -(-ctas // max(r["ctas_per_sm"] * sms, 1))
+    return (f"{name}: {r['registers']} registers, {r['local_bytes']} local "
+            f"(spill) bytes a thread, {r['static_smem'] + r['dynamic_smem']}"
+            f" B shared memory and {r['threads']} threads a CTA, "
+            f"{r['ctas_per_sm']} CTAs per SM (occupancy API); main-path grid "
+            f"{ctas} CTAs on {sms} SMs = {waves} wave(s)")
+
+
+def k1_bound(vol: torch.Tensor, kw: dict) -> tuple:
+    """K1's bound on one volume: 12 bytes read and 24 written per pixel;
+    10 float32 operations per in-tile edge for the buckets, and 8 float64
+    operations per gate test, counting in every scan the edges whose
+    bucket is at most the level's threshold (an upper bound of the tests
+    the labels leave)."""
+    from video_segment_tpu_torch.ops import tile_felz as tf
+    t, h, w, _ = vol.shape
+    col = tf._to_tiles(vol.float())
+    inb = tf._to_tiles(torch.ones((t, h, w), dtype=torch.bool,
+                                  device=vol.device), fill=False)
+    nbr, inside = tf._neighbors(vol.device)
+    bkts = []
+    for k in range(len(tf.DIRS)):
+        q = nbr[k]
+        d = tf._dist32(col, col[:, q], kw["metric"])
+        b = torch.clamp((d * tf.NUM_BUCKETS).to(torch.int32), 0,
+                        tf.NUM_BUCKETS - 1)
+        valid = inb & inb[:, q] & inside[k][None]
+        bkts.append(torch.where(valid, b, tf.NUM_BUCKETS))
+    bkts = torch.stack(bkts)
+    rounds = tf._rounds(kw["schedule"], kw["rounds_per_level"])
+    tests = sum((r + 1) * int((bkts <= th).sum())
+                for th, r in zip(kw["schedule"], rounds))
+    n_edges = int((bkts < tf.NUM_BUCKETS).sum())
+    return bound(36 * t * h * w, {"f32": 10 * n_edges, "f64": 8 * tests})
+
+
 def reset_launches(*wrappers) -> None:
     for fn in wrappers:
         fn.launches = 0
@@ -300,6 +397,10 @@ def main() -> int:
                 or "smem" in ln]
         log("build", f"{name}: {_build.build_info[name]['seconds']:.2f}s "
             f"{' | '.join(regs)}")
+    tiles = -(-H // tf.TILE_H) * -(-W // tf.TILE_W)
+    log("build", resource_line("tile_felz", tiles))        # one frame
+    log("build", resource_line("tile_extract", 21 * tiles))  # one chunk
+    log("build", resource_line("tile_preseg", 21 * tiles))   # one chunk
     from video_segment_tpu_torch.core import region
     t1 = time.monotonic()
     if not region.native.available():
@@ -315,30 +416,51 @@ def main() -> int:
                  merge_threshold=p.merge_threshold, metric=p.metric,
                  fin_margin=p.preseg_fin_margin, fin_eager=p.preseg_fin_eager,
                  fin_gated=p.preseg_fin_gated, pair_merge=p.preseg_pair_merge)
+    from video_segment_tpu_torch.core import dense
+    frames, bg_masks = synthetic_clip(N_FRAMES, background=True)
     rng = np.random.default_rng(7)
     k1_err = 0.0
     labels8 = None
-    for shape, sigma in (((8, H, W), 1.5), ((2, 24, 300), 2.0)):
-        vol = torch.from_numpy(textured(rng, shape, sigma)).to(dev)
-        lab_k, fin_k, st_k = tf.tile_felzenszwalb(vol, **k1_kw)
-        lab_p, fin_p, st_p = tf.tile_felzenszwalb_plain(vol, **k1_kw)
+    clip2 = torch.stack([dense._preprocess_u8(
+        torch.as_tensor(fr, device=dev), "bilateral") for fr in frames[:2]])
+    inputs = (("textured", torch.from_numpy(textured(rng, (8, H, W), 1.5))),
+              ("textured", torch.from_numpy(textured(rng, (2, 24, 300),
+                                                     2.0))),
+              ("clip", clip2),
+              ("flat", torch.full((2, 20, 300, 3), 0.4)))
+    for name, vol in inputs:
+        vol = vol.to(dev).contiguous()
+        got = tf.tile_felzenszwalb(vol, **k1_kw)
+        want = tf.tile_felzenszwalb_plain(vol, **k1_kw)
         torch.cuda.synchronize()
-        if not (torch.equal(lab_k, lab_p) and torch.equal(fin_k, fin_p)
-                and torch.equal(st_k[0], st_p[0])):
-            raise AssertionError(f"K1 labels/fin/size differ at {shape}")
-        for a, b in zip(st_k[1:], st_p[1:]):
-            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
-            k1_err = max(k1_err, float((a - b).abs().max()))
+        for a, b in zip((got[0], got[1], *got[2]), (want[0], want[1],
+                                                    *want[2])):
+            k1_err = max(k1_err, float((a.double() - b.double()).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"K1 differs from its plain version on "
+                                     f"the {name} {tuple(vol.shape[:3])} "
+                                     f"input")
         if labels8 is None:
-            labels8 = lab_k
-        log("k1", f"{shape}: labels, fin, size equal; colour sums max abs "
-            f"err {k1_err:.3g}; {int(torch.unique(lab_k).numel())} regions")
+            labels8 = got[0]
+        log("k1", f"{name} {tuple(vol.shape[:3])}: labels, fin, sizes and "
+            f"colour sums equal bit for bit; "
+            f"{int(torch.unique(got[0]).numel())} regions")
     frame1 = torch.from_numpy(textured(rng, (1, H, W), 1.5)).to(dev)
-    k1_ms = cuda_ms(lambda: tf.tile_felzenszwalb(frame1, **k1_kw), 50)
+    k1_frames = {"textured": frame1, "clip": clip2[1:].contiguous(),
+                 "flat": torch.full((1, H, W, 3), 0.4, device=dev)}
+    k1_times = {name: device_ms(lambda: tf.tile_felzenszwalb(fr, **k1_kw),
+                                200)
+                for name, fr in k1_frames.items()}
+    k1_ms = k1_times["textured"]
+    k1_host_ms = cuda_ms(lambda: tf.tile_felzenszwalb(frame1, **k1_kw), 200)
     k1_plain_ms = cuda_ms(lambda: tf.tile_felzenszwalb_plain(frame1, **k1_kw),
                           5)
-    log("k1", f"one {H}x{W} frame: kernel {k1_ms:.4f} ms, plain "
-        f"{k1_plain_ms:.4f} ms")
+    k1_bound_ms, k1_by = k1_bound(frame1, k1_kw)
+    log("k1", f"one {H}x{W} frame: kernel {k1_ms:.4f} ms textured, "
+        f"{k1_times['clip']:.4f} ms clip, {k1_times['flat']:.4f} ms flat "
+        f"(launches back to back); {k1_host_ms:.4f} ms a call as the host "
+        f"issues them; plain {k1_plain_ms:.4f} ms; bound "
+        f"{k1_bound_ms * 1e3:.3f} us ({k1_by})")
 
     # -- 4. K2 vs plain -----------------------------------------------------
     t_solve = 21
@@ -357,16 +479,42 @@ def main() -> int:
     if not torch.equal(red_k, red_p):
         raise AssertionError("K2 differs from its plain version")
     k2_err = float((red_k.long() - red_p.long()).abs().max())
-    k2_ms = cuda_ms(lambda: te.tile_reduce_min(labr, labc, keys), 50)
+    k2_ms = device_ms(lambda: te.tile_reduce_min(labr, labc, keys), 50)
     k2_plain_ms = cuda_ms(lambda: te.tile_reduce_min_plain(labr, labc, keys),
                           5)
+    # The library call: one scatter_reduce_("amin") into a table of
+    # (direction, tile, cell) segments and one gather, indices precomputed.
+    nty, ntx = -(-H // tf.TILE_H), -(-W // tf.TILE_W)
+    ys = torch.arange(H, device=dev)[:, None]
+    xs = torch.arange(W, device=dev)[None, :]
+    tiles = ((torch.arange(t_solve, device=dev)[:, None, None] * nty
+              + ys // tf.TILE_H) * ntx + xs // tf.TILE_W)
+    seg = (tiles * tf.NPIX + labr.long() * tf.TILE_W
+           + labc.long()).reshape(1, -1).expand(keys.shape[0], -1)
+    own = (tiles * tf.NPIX + (ys % tf.TILE_H) * tf.TILE_W
+           + xs % tf.TILE_W).reshape(-1)
+    keys2 = keys.reshape(keys.shape[0], -1)
+    n_seg = t_solve * nty * ntx * tf.NPIX
+
+    def k2_library():
+        table = torch.full((keys.shape[0], n_seg), ov.I32MAX,
+                           dtype=torch.int32, device=dev)
+        table.scatter_reduce_(1, seg, keys2, "amin")
+        return table[:, own]
+
+    if not torch.equal(k2_library().reshape(keys.shape), red_k):
+        raise AssertionError("K2's library call differs from the kernel")
+    k2_lib_ms = device_ms(k2_library, 20)
+    k2_bound_ms, k2_by = bound(
+        2 * keys.numel() * 4 + 2 * labr.numel() * 4, {"i32": keys.numel()})
     log("k2", f"(13,{t_solve},{H},{W}) equal; kernel {k2_ms:.4f} ms, plain "
-        f"{k2_plain_ms:.4f} ms")
-    del keys, red_k, red_p
+        f"{k2_plain_ms:.4f} ms, library call (scatter_reduce_ amin + "
+        f"gather) {k2_lib_ms:.4f} ms; bound {k2_bound_ms * 1e3:.1f} us "
+        f"({k2_by})")
+    del keys, red_k, red_p, seg, own, keys2, tiles
 
     # -- 5. main path -------------------------------------------------------
     from video_segment_tpu_torch import api
-    frames, bg_masks = synthetic_clip(N_FRAMES, background=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     tf.tile_felzenszwalb.launches = 0
@@ -418,13 +566,30 @@ def main() -> int:
     if not (torch.equal(raw_k, raw_p) and torch.equal(k4_k, k4_p)):
         raise AssertionError("K4 differs from its plain version")
     k4_err = float((k4_k.long() - k4_p.long()).abs().max())
-    k4_ms = cuda_ms(lambda: tp.flood_kernel(vol21, thr, "l2", 48), 50)
+    k4_ms = device_ms(lambda: tp.flood_kernel(vol21, thr, "l2", 48), 50)
     k4_plain_ms = cuda_ms(lambda: tp.flood_plain(vol21, thr, "l2", 48), 5)
+    # Bound: 12 bytes read and 4 written a voxel; per in-tile N4 edge 10
+    # float32 operations for its distance, and in each of the 48 Jacobi
+    # iterations one integer min at each end of an admissible edge.
+    k4_edges = 0
+    k4_admissible = 0
+    for dim, size in ((1, tf.TILE_H), (2, tf.TILE_W)):
+        a = vol21.narrow(dim, 0, vol21.shape[dim] - 1)
+        b = vol21.narrow(dim, 1, vol21.shape[dim] - 1)
+        d = tf._dist32(a, b, "l2")
+        pos = torch.arange(vol21.shape[dim] - 1, device=dev)
+        inner = (pos % size != size - 1).view(
+            (1, -1, 1) if dim == 1 else (1, 1, -1))
+        k4_edges += int(inner.expand(d.shape).sum())
+        k4_admissible += int(((d <= thr) & inner).sum())
+    k4_bound_ms, k4_by = bound(16 * vol21.numel() // 3,
+                               {"f32": 10 * k4_edges,
+                                "i32": 48 * 2 * k4_admissible})
     n_flood = int(torch.unique(k4_k).numel())
     log("k4", f"(21,{H},{W}) raw roots and collapsed labels equal; "
         f"{n_flood} regions ({n_flood / k4_k.numel():.3f} per pixel); kernel "
         f"{k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms (before the pointer "
-        "jump)")
+        f"jump); bound {k4_bound_ms * 1e3:.1f} us ({k4_by})")
 
     # -- 8. K3 vs plain -----------------------------------------------------
     def k3_pair(kw):
@@ -460,15 +625,21 @@ def main() -> int:
             -(-(n_seeds + 1024) // 16384) * 16384, lab_f.numel()))
     k3_kw = ov.supertile_level_inputs(vol21, lab_f, fin_f, st_f, st_params)
     k3_err, moved = k3_pair(k3_kw)
-    k3_ms = cuda_ms(lambda: tt.tile_table_rounds(**k3_kw), 20)
+    k3_ms = device_ms(lambda: tt.tile_table_rounds(**k3_kw), 20)
     k3_plain_ms = cuda_ms(lambda: tt.tile_table_rounds_plain(**k3_kw), 3)
     n_sup, k_e = k3_kw["edges"].shape[:2]
     placed = int((k3_kw["size"] > 0).sum())
+    # Bound: 8 input planes and K edge planes read once, 2 planes written;
+    # per round and slot, K edge tests of about 20 float32 operations.
+    slots = k3_kw["labr"].numel()
+    k3_bound_ms, k3_by = bound(4 * slots * (8 + k_e + 2),
+                               {"f32": k3_kw["rounds"] * slots * k_e * 20})
+    log("build", resource_line("tile_table", n_sup))
     log("k3", f"real chunk, level 0: {n_seeds} pair-merge seeds ({placed} "
         f"placed), {n_sup} supertiles x {k3_kw['labr'].shape[1] * 128} "
         f"slots, K={k_e}: "
         f"equal; {moved} slots moved; kernel {k3_ms:.4f} ms, plain "
-        f"{k3_plain_ms:.4f} ms")
+        f"{k3_plain_ms:.4f} ms; bound {k3_bound_ms * 1e3:.1f} us ({k3_by})")
     del vol21, raw_k, raw_p, k4_k, k4_p, k3_kw, lab_f, fin_f, st_f
 
     # -- 9. flood path ------------------------------------------------------
@@ -594,32 +765,44 @@ def main() -> int:
     if fm < 0.9:
         raise AssertionError(f"flow: card vs CPU boundary F {fm:.4f} < 0.9")
 
+    # -- 15. the port stands alone -----------------------------------------
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     if jax_mods:
         raise AssertionError(f"the port imported JAX: {jax_mods[:5]}")
+    pkg_mods = sorted(m for m in sys.modules if m == "video_segment_tpu"
+                      or m.startswith("video_segment_tpu."))
+    if pkg_mods:
+        raise AssertionError(f"the port imported the JAX package: "
+                             f"{pkg_mods[:5]}")
+    log("alone", "no module of video_segment_tpu (the JAX package) and no "
+        "jax was imported during the run")
 
     kernels = [
         dict(name="tile_felzenszwalb", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_felz.cu",
              replaces="video_segment_tpu/ops/tile_felz.py:474",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms),
+             plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by,
+             library_ms=None),
         dict(name="tile_reduce_min", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_extract.cu",
              replaces="video_segment_tpu/ops/tile_extract.py:102",
              launches=k2_launches, max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain_ms),
+             plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by,
+             library_ms=k2_lib_ms),
         dict(name="tile_presegment", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_preseg.cu",
              replaces="video_segment_tpu/ops/tile_preseg.py:98",
              launches=k4_launches, max_abs_err=k4_err, ms=k4_ms,
-             plain_ms=k4_plain_ms),
+             plain_ms=k4_plain_ms, bound_ms=k4_bound_ms, bound_by=k4_by,
+             library_ms=None),
         dict(name="tile_table_rounds", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_table.cu",
              replaces="video_segment_tpu/ops/tile_table.py:358",
              launches=k3_launches, max_abs_err=k3_err, ms=k3_ms,
-             plain_ms=k3_plain_ms),
+             plain_ms=k3_plain_ms, bound_ms=k3_bound_ms, bound_by=k3_by,
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

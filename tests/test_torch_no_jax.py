@@ -1,6 +1,6 @@
-"""The port runs with jax, cv2 and protobuf unimportable.
+"""The port runs with the JAX package, jax, cv2 and protobuf unimportable.
 
-A subprocess blocks the three (`sys.modules[name] = None` makes their
+A subprocess blocks the five (`sys.modules[name] = None` makes their
 import raise), imports the port and its kernel modules, runs a tiny
 `segment_frames(..., device="cpu")` end to end with flow off and with its
 default flow on (the port's TV-L1 engine), and runs the dense stage with
@@ -20,16 +20,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import sys
-    BLOCKED = ("jax", "jaxlib", "cv2", "google.protobuf")
+    BLOCKED = ("video_segment_tpu", "jax", "jaxlib", "cv2",
+               "google.protobuf")
     for name in BLOCKED:
         sys.modules[name] = None
     import numpy as np
     import torch
     torch.set_num_threads(2)
-    from video_segment_tpu.core.options import (DenseSegmentationOptions,
-                                                RegionSegmentationOptions)
     from video_segment_tpu_torch.api import segment_frames
     from video_segment_tpu_torch.core import dense, flow
+    from video_segment_tpu_torch.core.options import (
+        DenseSegmentationOptions, RegionSegmentationOptions)
     from video_segment_tpu_torch.core import oversegmentation as ov
     from video_segment_tpu_torch.ops import (tile_extract, tile_felz,
                                              tile_preseg, tile_table)
@@ -79,7 +80,6 @@ SCRIPT = textwrap.dedent("""
 
 def test_port_runs_without_jax_cv2_protobuf():
     env = dict(os.environ, PYTHONPATH=REPO)
-    env.pop("VST_JAX_CACHE", None)
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr

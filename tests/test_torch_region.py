@@ -26,13 +26,13 @@ import torch
 
 from video_segment_tpu import api as japi
 from video_segment_tpu.core import agglomeration as jagg
-from video_segment_tpu.core import region as jregion
 from video_segment_tpu.core.options import (DenseSegmentationOptions,
                                             RegionSegmentationOptions)
 from video_segment_tpu.segment_util import metrics
 from video_segment_tpu_torch import api as tapi
 from video_segment_tpu_torch.core import agglomeration as tagg
 from video_segment_tpu_torch.core import region as tregion
+from video_segment_tpu_torch.core.options import options_from_jax
 
 from test_torch_dense import clip
 
@@ -144,11 +144,10 @@ def test_agglomerate_matches_jax_given_jax_distances(monkeypatch, case):
 
 
 def test_agglomerate_float_order_flip():
-    """Own distances, on the input that shows the flip (ROADMAP.md, Queue
-    3): chi-square sums over 4000 bins differ from XLA's by float32 ulps
-    (another summation order), which moves some quantized keys
-    int(d * 2^20) and flips a level-0 decision.  Level counts stay equal
-    and levels 0-2 stay more than 98% pair-identical."""
+    """Own distances, on the input that showed F1's flip (ROADMAP.md,
+    Queue 3): chi-square sums over 4000 bins now run in XLA's order
+    (`ordered_sum`), so the distances and every level equal the JAX
+    package's exactly."""
     problem = dict(r=300, bins=4000)
     hist, _, edges, _ = _hist_problem(5, **problem)
     from video_segment_tpu.ops import histograms as jhops
@@ -157,16 +156,43 @@ def test_agglomerate_float_order_flip():
                                               jnp.asarray(edges)))
     dt = thops.edge_color_distance(torch.from_numpy(hist),
                                    torch.from_numpy(edges)).numpy()
-    np.testing.assert_allclose(dt, dj, rtol=2e-6, atol=0)
+    np.testing.assert_array_equal(dt, dj)
     got, want, r = _agglomerate_both(5, False, **problem)
     assert len(got) == len(want)
-    for a, b in zip(got[:3], want[:3]):
-        a, b = a[:r], b[:r]
-        same = (a[:, None] == a[None]) == (b[:, None] == b[None])
-        assert same.mean() > 0.98
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("n", [16, 33, 100, 1000, 4000])
+def test_ordered_sum_matches_jax(n):
+    """`ordered_sum` and `ordered_dot` reproduce the compiled JAX sums bit
+    for bit: XLA's CPU tree of 32-wide windows, and its fused
+    multiply-adds for short weighted sums."""
+    import jax
+    from video_segment_tpu_torch.ops import histograms as thops
+    rng = np.random.default_rng(n)
+    x = (rng.random((64, n)) * (rng.random((64, n)) < 0.5)).astype(
+        np.float32)
+    w = rng.integers(0, 40, (64, n)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=1))(x))
+    np.testing.assert_array_equal(
+        thops.ordered_sum(torch.from_numpy(x)).numpy(), want)
+    want = np.asarray(jax.jit(lambda a, b: jnp.sum(a * b, axis=1))(x, w))
+    np.testing.assert_array_equal(
+        thops.ordered_dot(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        want)
+
+
+def _jregion():
+    """The JAX package's region module.  Imported where used: it imports
+    the JAX package's protobuf layer, which compiles its schema with
+    `protoc` at import, so the card tests can run where there is none."""
+    from video_segment_tpu.core import region
+    return region
 
 
 def test_accumulate_all_matches_jax():
+    jregion = _jregion()
     rng = np.random.default_rng(8)
     labels = rng.integers(0, 30, (2, 8, 16)).astype(np.int32)
     lab_u8 = rng.integers(0, 256, (2, 8, 16, 3)).astype(np.uint8)
@@ -185,6 +211,7 @@ def test_accumulate_all_flow_matches_jax_and_native():
     counts: the torch path equals JAX's device path and the native
     weighted-bincount path the region stage takes first."""
     from video_segment_tpu import native
+    jregion = _jregion()
     rng = np.random.default_rng(10)
     t, h, w, rcap, fb = 2, 8, 16, 32, 16
     labels = rng.integers(0, 30, (t, h, w)).astype(np.int32)
@@ -212,9 +239,8 @@ def test_accumulate_all_flow_matches_jax_and_native():
 
 
 def test_flow_descriptor_ops_match_jax():
-    """flow_bins exact in its bins; edge_flow_distance within 2e-6
-    relative (16-bin chi-square sums and a weighted sum over frames in
-    another float order: the F1 class)."""
+    """flow_bins exact in its bins; edge_flow_distance exact (16-bin
+    chi-square sums and the weighted sum over frames in XLA's order)."""
     from video_segment_tpu.ops import histograms as jhops
     from video_segment_tpu_torch.ops import histograms as thops
     rng = np.random.default_rng(11)
@@ -233,9 +259,10 @@ def test_flow_descriptor_ops_match_jax():
                                    torch.from_numpy(fc),
                                    torch.from_numpy(edges), batch=64).numpy()
     assert (want > 0).sum() > len(edges) // 2
-    np.testing.assert_allclose(got, want, rtol=2e-6, atol=0)
-    # The SquaredOR combination with a nonzero flow distance: XLA contracts
-    # (1-c)(1-f) and its complement into FMAs; a few ulps of 1.0 apart.
+    np.testing.assert_array_equal(got, want)
+    # The size-penalized SquaredOR combination: XLA computes log2 with its
+    # own polynomial (and, compiled, contracts 1 - (1-c)(1-f) into an
+    # FMA); a few ulps of 1.0 apart (ROADMAP.md, Queue 3, F1).
     n = 4096
     c, f = (torch.from_numpy(rng.random(n).astype(np.float32))
             for _ in range(2))
@@ -351,10 +378,11 @@ def test_segment_frames_matches_jax(monkeypatch):
     _cv2_lab(monkeypatch)
     frames = clip()
     d, r = _options()
+    td, tr = map(options_from_jax, (d, r))
     want = list(japi.segment_frames(iter(frames), W, H, use_flow=False,
                                     dense_options=d, region_options=r))
     got = list(tapi.segment_frames(iter(frames), W, H, use_flow=False,
-                                   dense_options=d, region_options=r,
+                                   dense_options=td, region_options=tr,
                                    device="cpu"))
     exact = _compare_levels(got, want)
     print(f"segment_frames parity: "
@@ -391,10 +419,11 @@ def test_segment_frames_flow_matches_jax_given_same_flow(monkeypatch):
     monkeypatch.setattr(tflow, "FlowEngine", lambda w, h, device: _ServedFlow(
         flows, lambda f: tflow.FlowField(dev=torch.tensor(f))))
     d, r = _options(use_flow=True)
+    td, tr = map(options_from_jax, (d, r))
     want = list(japi.segment_frames(iter(frames), W, H, dense_options=d,
                                     region_options=r))
-    stream = tapi.segment_frames(iter(frames), W, H, dense_options=d,
-                                 region_options=r, device="cpu")
+    stream = tapi.segment_frames(iter(frames), W, H, dense_options=td,
+                                 region_options=tr, device="cpu")
     got = list(stream)
     assert stream.stage_seconds["flow"] >= 0.0
     _compare_levels(got, want, exact_required=True)
@@ -416,10 +445,11 @@ def test_segment_frames_flow_own_engines_match_jax(monkeypatch):
     _cv2_lab(monkeypatch)
     frames = clip()
     d, r = _options(use_flow=True)
+    td, tr = map(options_from_jax, (d, r))
     want = list(japi.segment_frames(iter(frames), W, H, dense_options=d,
                                     region_options=r))
-    got = list(tapi.segment_frames(iter(frames), W, H, dense_options=d,
-                                   region_options=r, device="cpu"))
+    got = list(tapi.segment_frames(iter(frames), W, H, dense_options=td,
+                                   region_options=tr, device="cpu"))
     exact = _compare_levels(got, want)
     print(f"segment_frames flow parity: "
           f"{'exact' if exact else 'boundary F >= 0.95'}")
@@ -435,8 +465,9 @@ def test_segment_video_writes_pb(tmp_path):
         wr.write(img)
     wr.release()
     d, r = _options()
+    td, tr = map(options_from_jax, (d, r))
     out = tapi.segment_video(vid, str(tmp_path / "out.pb"), use_flow=False,
-                             dense_options=d, region_options=r, device="cpu")
+                             dense_options=td, region_options=tr, device="cpu")
     reader = seg_io.SegmentationReader(out)
     assert reader.open_and_read_headers()
     assert reader.num_frames == 8
@@ -458,8 +489,9 @@ def test_segment_video_flow_writes_pb(tmp_path):
         wr.write(img)
     wr.release()
     d, r = _options(use_flow=True)
-    out = tapi.segment_video(vid, str(tmp_path / "out.pb"), dense_options=d,
-                             region_options=r, device="cpu")
+    td, tr = map(options_from_jax, (d, r))
+    out = tapi.segment_video(vid, str(tmp_path / "out.pb"), dense_options=td,
+                             region_options=tr, device="cpu")
     reader = seg_io.SegmentationReader(out)
     assert reader.open_and_read_headers()
     assert reader.num_frames == 8

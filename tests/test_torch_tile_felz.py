@@ -4,7 +4,10 @@ The plain PyTorch version runs here on the CPU; it must equal the mirror
 `tile_felz_reference` and the JAX Pallas kernel (interpret mode) exactly
 in labels and finalize levels, and match the cell-positioned stats to
 1e-5 relative (the mirror and the JAX kernel sum colours in float32, the
-port in float64).  The CUDA kernel is held to the plain version on a card.
+port in float64).  The CUDA kernel is held to the plain version bit for
+bit on a card (`-m cuda`), on ragged shapes, T > 1, a flat frame and
+presmoothed frames of chip_smoke.py's clip, under every variant; its gate
+keys are checked here.
 """
 
 import numpy as np
@@ -96,13 +99,69 @@ def test_wrapper_validates_inputs():
         ttf.tile_felzenszwalb(torch.zeros((1, 8, 8, 3), dtype=torch.float64))
 
 
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+@pytest.mark.parametrize("threshold", [0.05, 0.075, 0.0123, 0.5])
+def test_gate_key_splits_distances_exactly(metric, threshold):
+    """The kernel's gate compares the float64 key (sum of squared / of
+    absolute mean differences) with `gate_key`; on keys around it and on
+    random keys, `key < gate_key` equals the plain version's
+    `distance < threshold` with its division and square root."""
+    key = ttf.gate_key(threshold, metric)
+
+    def dist(k):
+        d = torch.tensor([k], dtype=torch.float64) / 3.0
+        return float((ttf.sqrt64(d) if metric == "l2" else d)[0])
+
+    assert dist(key) >= threshold
+    below = np.nextafter(key, 0.0)
+    assert dist(below) < threshold
+    rng = np.random.default_rng(0)
+    ks = np.concatenate([key * (1 + rng.normal(0, 1e-12, 200)),
+                         rng.random(200) * 3 * key,
+                         [0.0, below, key, np.nextafter(key, np.inf)]])
+    for k in np.abs(ks):
+        assert (k < key) == (dist(k) < threshold), k
+
+
+def _clip_frames(n):
+    """Presmoothed frames of chip_smoke.py's synthetic 272x480 clip: the
+    inputs the main path feeds K1."""
+    import importlib.util
+    import os
+    from video_segment_tpu_torch.core import dense
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    frames = smoke.synthetic_clip(n)
+    return torch.stack([dense._preprocess_u8(torch.as_tensor(f).cuda(),
+                                             "bilateral") for f in frames])
+
+
+def _card_input(name, textured_vol):
+    if name == "textured":           # T=2, W not a multiple of 128
+        return torch.from_numpy(textured_vol).cuda()
+    if name == "ragged":             # T=3, neither H nor W tile multiples
+        rng = np.random.default_rng(9)
+        import scipy.ndimage as ndi
+        vol = ndi.gaussian_filter(rng.random((3, 21, 203, 3)),
+                                  (0, 1.5, 1.5, 0)).astype(np.float32)
+        return torch.from_numpy(vol).cuda()
+    if name == "flat":               # one region per tile: most contention
+        return torch.full((2, 16, 256, 3), 0.4, device="cuda")
+    return _clip_frames(2)           # "clip": (2, 272, 480) presmoothed
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("inp", ["textured", "ragged", "flat", "clip"])
 @pytest.mark.parametrize("kw", [DENSE_KW, *VARIANTS.values()],
                          ids=["dense", *VARIANTS])
-def test_kernel_matches_plain_on_card(textured_vol, kw):
+def test_kernel_matches_plain_on_card(textured_vol, kw, inp):
+    """Bit for bit: labels, fin levels, sizes and colour sums."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernel has no CPU mode)")
-    vol = torch.from_numpy(textured_vol).cuda()
+    vol = _card_input(inp, textured_vol)
     before = ttf.tile_felzenszwalb.launches
     lab_k, fin_k, st_k = ttf.tile_felzenszwalb(vol, **kw)
     assert ttf.tile_felzenszwalb.launches == before + 1
@@ -110,6 +169,7 @@ def test_kernel_matches_plain_on_card(textured_vol, kw):
     torch.cuda.synchronize()
     assert torch.equal(lab_k, lab_p)
     assert torch.equal(fin_k, fin_p)
-    assert torch.equal(st_k[0], st_p[0])
-    for a, b in zip(st_k[1:], st_p[1:]):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    for a, b in zip(st_k, st_p):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    if inp == "flat" and not kw.get("pair_merge"):
+        assert torch.unique(lab_k).numel() == vol.shape[0] * 2 * 2

@@ -3,26 +3,21 @@
 A second package beside ``video_segment_tpu`` (the JAX/Pallas reference):
 the same streaming dense over-segmentation, edge-table region solver and
 hierarchical agglomeration, written as plain functions on torch tensors,
-with the two Pallas kernels of the flow-off path rewritten as hand CUDA
-kernels for Hopper (``csrc/``):
+with every Pallas kernel of the JAX package rewritten as a hand CUDA
+kernel for Hopper (``csrc/``):
 
 - ``ops.tile_felz.tile_felzenszwalb``: tile-local Felzenszwalb pre-solve;
-- ``ops.tile_extract.tile_reduce_min``: per-tile edge-key minima.
+- ``ops.tile_extract.tile_reduce_min``: per-tile edge-key minima;
+- ``ops.tile_table.tile_table_rounds``: supertile table merge rounds;
+- ``ops.tile_preseg.tile_presegment``: tile flood pre-segmentation.
 
 Every public entry takes an explicit ``device`` (default ``"cuda"``); a
 machine without CUDA fails instead of falling back to the CPU.  On CPU
 tensors the kernel wrappers run their plain PyTorch versions.
 
-JAX-free host modules (option dataclasses, RLE, connectedness, the native
-g++ helpers) are shared with ``video_segment_tpu``.  The package never
-imports ``jax``: the shared package's optional JAX cache setup is switched
-off before it is first imported.
+The package imports nothing of ``video_segment_tpu``: its host modules
+(options, RLE, connectedness, the native g++ helpers, the ``.pb`` writer
+and its schema, boundary vectorization) are copies of the JAX package's.
 """
-
-import os as _os
-
-# video_segment_tpu/__init__.py imports jax (when installed) only to set up
-# its persistent compilation cache; VST_JAX_CACHE=0 skips that import.
-_os.environ.setdefault("VST_JAX_CACHE", "0")
 
 __version__ = "0.1.0"

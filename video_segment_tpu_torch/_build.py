@@ -77,3 +77,22 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         _libs[name] = lib
         return lib
+
+
+RESOURCE_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+                 "threads", "ctas_per_sm")
+
+
+def resources(name: str) -> dict:
+    """What `csrc/<name>.cu`'s `<name>_resources` reports for its kernel
+    at the main path's launch configuration: registers and local (spill)
+    bytes a thread, static and dynamic shared memory and threads a CTA,
+    and CTAs resident on one SM by the occupancy API.  Needs the card."""
+    fn = getattr(load(name), f"{name}_resources")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = fn(out)
+    if err:
+        raise RuntimeError(f"{name}_resources failed: CUDA error {err}")
+    return dict(zip(RESOURCE_KEYS, out))

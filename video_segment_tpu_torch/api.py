@@ -21,10 +21,10 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from video_segment_tpu.core.options import (DenseSegmentationOptions,
-                                            RegionSegmentationOptions)
 from video_segment_tpu_torch import device as devmod
 from video_segment_tpu_torch.core import dense as dense_mod
+from video_segment_tpu_torch.core.options import (DenseSegmentationOptions,
+                                                  RegionSegmentationOptions)
 
 
 def segment_frames(frames: Iterable[np.ndarray], frame_width: int,
@@ -117,9 +117,9 @@ def segment_video(input_path: str, output_path: str | None = None, *,
                   region_options: RegionSegmentationOptions | None = None,
                   device: str | torch.device = "cuda") -> str:
     """Segment a video file end to end; writes and returns the .pb path.
-    Decoding and the .pb writer are the JAX package's host modules (cv2,
-    protobuf)."""
-    from video_segment_tpu.dataio import emit, seg_io, video
+    Decoding (cv2) and the .pb writer (protobuf) are imported here only,
+    so `segment_frames` needs neither."""
+    from video_segment_tpu_torch.dataio import emit, seg_io, video
 
     reader = video.VideoReader(
         input_path, downscale="to_min" if downscale_min_size else "none",

@@ -15,8 +15,8 @@ first, `core/flow.FlowField`s or arrays) the solver's temporal edges are
 displaced along it and connectedness advects centroids by it.  Scope: one
 device, unbanded solves; banded chunking and the mesh solve raise
 NotImplementedError.  The host tail (N4 fix result, compaction,
-connectedness, id assignment, RLE) reuses the JAX-free host modules of
-video_segment_tpu.
+connectedness, id assignment, RLE) runs the port's copies of the JAX
+package's host modules (`core/connectedness.py`, `ops/rle.py`).
 """
 
 from __future__ import annotations
@@ -28,11 +28,10 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from video_segment_tpu.core.options import DenseSegmentationOptions
-from video_segment_tpu.ops import rle
 from video_segment_tpu_torch import device as devmod
 from video_segment_tpu_torch.core import oversegmentation as ov
-from video_segment_tpu_torch.ops import filters, tile_felz, tile_preseg
+from video_segment_tpu_torch.core.options import DenseSegmentationOptions
+from video_segment_tpu_torch.ops import filters, rle, tile_felz, tile_preseg
 
 
 @dataclasses.dataclass
@@ -491,7 +490,7 @@ class DenseSegmentation:
                 constr_of_region, _ = ov.region_attrs(res, roots)
 
             if self.options.enforce_spatial_connectedness:
-                from video_segment_tpu.core import connectedness
+                from video_segment_tpu_torch.core import connectedness
                 compact, n2, _origin = \
                     connectedness.enforce_spatial_connectedness(
                         compact, num_regions, flow=ctx["flow_np"])

@@ -11,7 +11,7 @@ inheritance) is the JAX package's.
 
 Scope: windowed appearance (`appearance_window_size > 0`) and
 `save_descriptors` raise NotImplementedError.  Histograms come from the
-native threaded accumulator of video_segment_tpu.native; `_accumulate_all`
+port's native threaded accumulator (`native/`); `_accumulate_all`
 is the torch path when that library is unavailable.  Lab conversion is
 `bgr_to_lab_u8` (OpenCV's 8-bit BGR->Lab formula; no cv2 import); flow
 angles are binned and magnitudes rounded to float16 in NumPy exactly as the
@@ -26,12 +26,12 @@ import time
 import numpy as np
 import torch
 
-from video_segment_tpu import native
-from video_segment_tpu.core.options import RegionSegmentationOptions
-from video_segment_tpu.ops import rle
 from video_segment_tpu_torch import device as devmod
+from video_segment_tpu_torch import native
 from video_segment_tpu_torch.core import agglomeration
 from video_segment_tpu_torch.core.dense import HierarchyLevelData, SegFrame
+from video_segment_tpu_torch.core.options import RegionSegmentationOptions
+from video_segment_tpu_torch.ops import rle
 
 
 def _next_pow2(x: int) -> int:
@@ -90,8 +90,8 @@ def bgr_to_lab_u8(frame_bgr_u8: np.ndarray) -> np.ndarray:
 
 def rasterize_ids(draw_ids, counts, intervals, h, w) -> np.ndarray:
     """Vectorized scanline fill: per-region draw ids over RLE intervals
-    (copy of video_segment_tpu/segment_util/util.py:rasterize_ids, whose
-    module imports the protobuf layer)."""
+    (the same as segment_util/util.py:rasterize_ids, whose module
+    imports the protobuf layer)."""
     img = np.full(h * w, -1, np.int64)
     if len(intervals) == 0:
         return img.reshape(h, w)

@@ -107,3 +107,24 @@ extern "C" int tile_preseg_launch(const void* vol, void* out, int T, int H,
       (const float*)vol, (int*)out, H, W, threshold, l1, iters);
   return (int)cudaGetLastError();
 }
+
+// out: registers a thread, local (spill) bytes a thread, static and
+// dynamic shared memory bytes a CTA, threads a CTA, resident CTAs an SM.
+extern "C" int tile_preseg_resources(int* out) {
+  const int smem = 0;
+  cudaError_t e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, tile_preseg_kernel);
+  if (e != cudaSuccess) return (int)e;
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, tile_preseg_kernel,
+                                                    NPIX, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = smem;
+  out[4] = NPIX;
+  out[5] = ctas;
+  return 0;
+}

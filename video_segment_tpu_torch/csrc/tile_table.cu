@@ -231,3 +231,26 @@ extern "C" int tile_table_launch(const void* labr, const void* labc,
       *prm);
   return (int)cudaGetLastError();
 }
+
+// out: registers a thread, local (spill) bytes a thread, static and
+// dynamic shared memory bytes a CTA, threads a CTA, resident CTAs an SM.
+extern "C" int tile_table_resources(int* out) {
+  const int smem = (int)(MAX_SLOTS * (4 * sizeof(double) + 3 * sizeof(int)));
+  cudaError_t e = cudaFuncSetAttribute(
+      tile_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, tile_table_kernel);
+  if (e != cudaSuccess) return (int)e;
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, tile_table_kernel,
+                                                    THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = smem;
+  out[4] = THREADS;
+  out[5] = ctas;
+  return 0;
+}

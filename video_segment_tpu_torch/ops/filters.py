@@ -5,7 +5,11 @@ Port of video_segment_tpu/ops/filters.py (same parity targets):
 - Bilateral: circular window of radius floor(1.5*sigma_space), replicate
   border, spatial weight exp(-0.5*r^2/ss^2), joint color weight
   exp(-0.5*||dc||^2/sc^2) shared by all channels (defaults 3.0 / 0.25).
-Sums run in the JAX version's left-to-right order.
+Sums run in the JAX version's left-to-right order.  The Gaussian's
+multiply-adds round as XLA's CPU backend contracts them (fused
+multiply-adds), so it equals the JAX version bit for bit; the bilateral
+filter's exp is torch's, not XLA's own polynomial, and stays within a few
+float32 ulps of it.
 """
 
 from __future__ import annotations
@@ -22,17 +26,36 @@ def _gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return (w / w.sum()).astype(np.float32)
 
 
+def _fma(a: float, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * x + c rounded once to float32, as a fused multiply-add: the
+    float32 product is exact in float64, and the float64 sum is rounded
+    once to float32."""
+    return (a * x.double() + c.double()).float()
+
+
+def _taps(k: list, tap) -> torch.Tensor:
+    """sum_i k[i] * tap(i) in the JAX package's compiled rounding: XLA's
+    CPU backend contracts the first two products' sum into
+    fma(k0, t0, k1 * t1) and each later term into fma(k_i, t_i, sum)."""
+    if len(k) == 1:
+        return k[0] * tap(0)
+    out = _fma(k[0], tap(0), k[1] * tap(1))
+    for i in range(2, len(k)):
+        out = _fma(k[i], tap(i), out)
+    return out
+
+
 def gaussian_blur(img: torch.Tensor, ksize: int = 3,
                   sigma: float = 1.5) -> torch.Tensor:
     """Separable Gaussian blur of an (H,W,C) float image, reflect-101."""
-    k = _gaussian_kernel_1d(ksize, sigma).tolist()
+    k = [float(v) for v in _gaussian_kernel_1d(ksize, sigma)]
     r = ksize // 2
     h, w = img.shape[0], img.shape[1]
     chw = img.permute(2, 0, 1)[None]
     pad = F.pad(chw, (0, 0, r, r), mode="reflect")
-    out = sum(k[i] * pad[:, :, i:i + h] for i in range(ksize))
+    out = _taps(k, lambda i: pad[:, :, i:i + h])
     pad = F.pad(out, (r, r, 0, 0), mode="reflect")
-    out = sum(k[i] * pad[:, :, :, i:i + w] for i in range(ksize))
+    out = _taps(k, lambda i: pad[:, :, :, i:i + w])
     return out[0].permute(1, 2, 0).contiguous()
 
 

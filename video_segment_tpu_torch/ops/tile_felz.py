@@ -21,6 +21,7 @@ compute the same values bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -249,6 +250,32 @@ def tile_felzenszwalb_plain(vol: torch.Tensor,
 # CUDA kernel wrapper.
 
 
+@functools.lru_cache(maxsize=64)
+def gate_key(threshold: float, metric: str) -> float:
+    """The least float64 key k >= 0 whose gate distance reaches
+    `threshold`, where the distance is sqrt(k / 3) for "l2" (k the sum of
+    squared mean differences) and k / 3 for "l1" (k the sum of absolute
+    differences), each operation rounded to nearest.  Both are monotone in
+    k, so `distance < threshold` holds exactly when `k < gate_key`: the
+    kernel's gate needs no divide or square root.  Found by bisection over
+    the bit patterns of non-negative float64 values (ordered like the
+    values), with NumPy's correctly rounded division and square root."""
+    def dist(bits: int) -> float:
+        d = np.array(bits, np.int64).view(np.float64) / 3.0
+        return float(np.sqrt(d) if metric == "l2" else d)
+
+    lo, hi = 0, 0x7FF0000000000000          # +0.0, +inf
+    if dist(lo) >= threshold:
+        return 0.0
+    while hi - lo > 1:                      # dist(lo) < threshold <= dist(hi)
+        mid = (lo + hi) // 2
+        if dist(mid) >= threshold:
+            hi = mid
+        else:
+            lo = mid
+    return float(np.array(hi, np.int64).view(np.float64))
+
+
 class _Params(ctypes.Structure):
     """Mirror of `FelzParams` in csrc/tile_felz.cu."""
     _fields_ = [("schedule", ctypes.c_int * _MAX_LEVELS),
@@ -258,8 +285,8 @@ class _Params(ctypes.Structure):
                 ("fin_eager", ctypes.c_int),
                 ("fin_gated", ctypes.c_int),
                 ("pair_merge", ctypes.c_int),
-                ("merge_threshold", ctypes.c_double),
-                ("strong_threshold", ctypes.c_double)]
+                ("merge_key", ctypes.c_double),
+                ("strong_key", ctypes.c_double)]
 
 
 def _lib():
@@ -327,8 +354,8 @@ def tile_felzenszwalb(vol: torch.Tensor,
     prm.fin_eager = int(fin_eager)
     prm.fin_gated = int(fin_gated)
     prm.pair_merge = int(pair_merge)
-    prm.merge_threshold = float(merge_threshold)
-    prm.strong_threshold = float(merge_threshold * fin_margin)
+    prm.merge_key = gate_key(float(merge_threshold), metric)
+    prm.strong_key = gate_key(float(merge_threshold * fin_margin), metric)
     labels = torch.empty((t, h, w), dtype=torch.int32, device=vol.device)
     fin = torch.empty_like(labels)
     stats = tuple(torch.empty((t, h, w), dtype=torch.float32,
