@@ -18,9 +18,12 @@ Phases (each prints one line; any failure exits non-zero):
     seeded 60-frame 272x480 synthetic clip (bench config 2's geometry),
     with launch counts proving K1 and K2 ran;
  6. the dense stage on the card vs the same port on the CPU (boundary F);
- 7. K4 tile_presegment vs its plain version on a (21,272,480) chunk;
+ 7. K4 tile_presegment vs its plain version on a (21,272,480) chunk: the
+    raw flood's time, bound and share, and the iterations the slowest tile
+    ran before its fixed point;
  8. K3 tile_table_rounds vs its plain version on quantized random tables
-    and on the first gated level of a real fine-preseg 272x480 chunk;
+    and on the first gated level of a real fine-preseg 272x480 chunk, with
+    the time, bound and share of each;
  9. the flood path: segment_frames with preseg_mode="flood" over 41
     frames (3 chunk solves), launch counts proving K4 and K2 ran;
 10. the supertile path: SegmentStream(DenseSegmentation(solver_params=
@@ -400,7 +403,8 @@ def main() -> int:
     tiles = -(-H // tf.TILE_H) * -(-W // tf.TILE_W)
     log("build", resource_line("tile_felz", tiles))        # one frame
     log("build", resource_line("tile_extract", 21 * tiles))  # one chunk
-    log("build", resource_line("tile_preseg", 21 * tiles))   # one chunk
+    log("build", resource_line("tile_preseg",               # one chunk
+                               -(-21 * tiles // tp.TILES_PER_CTA)))
     from video_segment_tpu_torch.core import region
     t1 = time.monotonic()
     if not region.native.available():
@@ -558,7 +562,9 @@ def main() -> int:
         dense._preprocess_u8(torch.as_tensor(fr, device=dev),
                              opts.presmoothing) for fr in frames[:t_solve]])
     thr = p.preseg_threshold
-    raw_k = tp.flood_kernel(vol21, thr, "l2", 48)
+    n_tiles = t_solve * -(-H // tf.TILE_H) * -(-W // tf.TILE_W)
+    k4_iters = torch.full((n_tiles,), -1, dtype=torch.int32, device=dev)
+    raw_k = tp.flood_kernel(vol21, thr, "l2", 48, tile_iters=k4_iters)
     raw_p = tp.flood_plain(vol21, thr, "l2", 48)
     k4_k = tp.tile_presegment(vol21, thr, "l2")
     k4_p = tp.tile_presegment_plain(vol21, thr, "l2")
@@ -569,27 +575,38 @@ def main() -> int:
     k4_ms = device_ms(lambda: tp.flood_kernel(vol21, thr, "l2", 48), 50)
     k4_plain_ms = cuda_ms(lambda: tp.flood_plain(vol21, thr, "l2", 48), 5)
     # Bound: 12 bytes read and 4 written a voxel; per in-tile N4 edge 10
-    # float32 operations for its distance, and in each of the 48 Jacobi
-    # iterations one integer min at each end of an admissible edge.
+    # float32 operations for its distance, and in each Jacobi iteration a
+    # tile ran (to its fixed point, at most 48) one integer min at each end
+    # of its admissible edges.
     k4_edges = 0
-    k4_admissible = 0
+    k4_adm_tile = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    ts = torch.arange(t_solve, device=dev).view(-1, 1, 1)
     for dim, size in ((1, tf.TILE_H), (2, tf.TILE_W)):
         a = vol21.narrow(dim, 0, vol21.shape[dim] - 1)
         b = vol21.narrow(dim, 1, vol21.shape[dim] - 1)
         d = tf._dist32(a, b, "l2")
-        pos = torch.arange(vol21.shape[dim] - 1, device=dev)
-        inner = (pos % size != size - 1).view(
-            (1, -1, 1) if dim == 1 else (1, 1, -1))
-        k4_edges += int(inner.expand(d.shape).sum())
-        k4_admissible += int(((d <= thr) & inner).sum())
+        ys = torch.arange(d.shape[1], device=dev).view(1, -1, 1)
+        xs = torch.arange(d.shape[2], device=dev).view(1, 1, -1)
+        pos = ys if dim == 1 else xs
+        inner = (pos % size != size - 1).expand(d.shape)
+        tile = ((ts * -(-H // tf.TILE_H) + ys // tf.TILE_H)
+                * -(-W // tf.TILE_W) + xs // tf.TILE_W).expand(d.shape)
+        k4_edges += int(inner.sum())
+        adm = (d <= thr) & inner
+        k4_adm_tile += torch.bincount(tile[adm], minlength=n_tiles)
+    k4_steps = int((k4_adm_tile * k4_iters.long()).sum())
     k4_bound_ms, k4_by = bound(16 * vol21.numel() // 3,
-                               {"f32": 10 * k4_edges,
-                                "i32": 48 * 2 * k4_admissible})
+                               {"f32": 10 * k4_edges, "i32": 2 * k4_steps})
     n_flood = int(torch.unique(k4_k).numel())
     log("k4", f"(21,{H},{W}) raw roots and collapsed labels equal; "
-        f"{n_flood} regions ({n_flood / k4_k.numel():.3f} per pixel); kernel "
-        f"{k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms (before the pointer "
-        f"jump); bound {k4_bound_ms * 1e3:.1f} us ({k4_by})")
+        f"{n_flood} regions ({n_flood / k4_k.numel():.3f} per pixel); "
+        f"iterations a tile ran before its fixed point: max "
+        f"{int(k4_iters.max())}, mean {float(k4_iters.float().mean()):.2f}, "
+        f"{int((k4_iters == 48).sum())} of {n_tiles} tiles stopped by the "
+        f"48-iteration budget; raw flood kernel {k4_ms:.4f} ms, plain "
+        f"{k4_plain_ms:.4f} ms (before the pointer jump); bound "
+        f"{k4_bound_ms * 1e3:.1f} us ({k4_by}), "
+        f"{100 * k4_bound_ms / k4_ms:.1f}% of it")
 
     # -- 8. K3 vs plain -----------------------------------------------------
     def k3_pair(kw):
@@ -605,17 +622,29 @@ def main() -> int:
                                                   + kw["labc"])).sum())
         return err, moved
 
+    def k3_bound(kw):
+        # 8 input planes and K edge planes read once, 2 planes written; per
+        # round and slot, K edge tests of about 20 float32 operations.
+        slots = kw["labr"].numel()
+        return bound(4 * slots * (8 + kw["edges"].shape[1] + 2),
+                     {"f32": kw["rounds"] * slots * kw["edges"].shape[1]
+                      * 20})
+
     rng = np.random.default_rng(13)
     for theta, mthr, blocked in ((64, 0.08, True), (2047, 0.05, False)):
         q = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
              for k, v in quantized_tables(rng, 64, 32, 12).items()}
         if not blocked:
             q["blocked"].zero_()
-        _, moved = k3_pair(dict(q, theta=theta, rounds=5,
-                                merge_threshold=mthr,
-                                force_merge_weight=0.001, metric="l2"))
+        q_kw = dict(q, theta=theta, rounds=5, merge_threshold=mthr,
+                    force_merge_weight=0.001, metric="l2")
+        _, moved = k3_pair(q_kw)
+        q_ms = device_ms(lambda: tt.tile_table_rounds(**q_kw), 20)
+        q_bound, q_by = k3_bound(q_kw)
         log("k3", f"quantized (64,12,32,128), theta {theta}: equal; "
-            f"{moved} slots moved")
+            f"{moved} slots moved; kernel {q_ms:.4f} ms; bound "
+            f"{q_bound * 1e3:.1f} us ({q_by}), "
+            f"{100 * q_bound / q_ms:.1f}% of it")
     pm_kw = dict(k1_kw, pair_merge=True)
     lab_f, fin_f, st_f = tf.tile_felzenszwalb(vol21, **pm_kw)
     n_seeds = int((lab_f.reshape(-1) == torch.arange(
@@ -629,17 +658,14 @@ def main() -> int:
     k3_plain_ms = cuda_ms(lambda: tt.tile_table_rounds_plain(**k3_kw), 3)
     n_sup, k_e = k3_kw["edges"].shape[:2]
     placed = int((k3_kw["size"] > 0).sum())
-    # Bound: 8 input planes and K edge planes read once, 2 planes written;
-    # per round and slot, K edge tests of about 20 float32 operations.
-    slots = k3_kw["labr"].numel()
-    k3_bound_ms, k3_by = bound(4 * slots * (8 + k_e + 2),
-                               {"f32": k3_kw["rounds"] * slots * k_e * 20})
+    k3_bound_ms, k3_by = k3_bound(k3_kw)
     log("build", resource_line("tile_table", n_sup))
     log("k3", f"real chunk, level 0: {n_seeds} pair-merge seeds ({placed} "
         f"placed), {n_sup} supertiles x {k3_kw['labr'].shape[1] * 128} "
         f"slots, K={k_e}: "
         f"equal; {moved} slots moved; kernel {k3_ms:.4f} ms, plain "
-        f"{k3_plain_ms:.4f} ms; bound {k3_bound_ms * 1e3:.1f} us ({k3_by})")
+        f"{k3_plain_ms:.4f} ms; bound {k3_bound_ms * 1e3:.1f} us ({k3_by}), "
+        f"{100 * k3_bound_ms / k3_ms:.1f}% of it")
     del vol21, raw_k, raw_p, k4_k, k4_p, k3_kw, lab_f, fin_f, st_f
 
     # -- 9. flood path ------------------------------------------------------

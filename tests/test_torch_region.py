@@ -1,11 +1,12 @@
 """Port region stage and the whole slice against the JAX package.
 
 - `agglomerate` on fixed seeded histograms (with and without per-frame
-  flow tables): per-level labels exact given the same chi-square
-  distances; with its own (float-order flip, ROADMAP.md Queue 3) level
-  counts equal and level 0 nearly identical.
-- `flow_bins` and `edge_flow_distance` against JAX (distances within
-  2e-6 relative, the F1 class of float-order differences).
+  flow tables): per-level labels exact given the JAX package's
+  distances, and exact with the port's own (seeds 5-9, free and
+  constrained: chi-square sums and the size penalty's log2 in XLA's CPU
+  order, ROADMAP.md Queue 3, F1).
+- `flow_bins`, `edge_flow_distance`, `xla_log2` and `combined_distance`
+  against JAX's compiled functions, bit for bit.
 - `segment_frames` end to end on the dense tests' clip (unsmoothed, see
   test_torch_dense), with the port's Lab conversion replaced by cv2's in
   those tests only, flow off and flow on.  Given the same flow arrays (and
@@ -163,6 +164,61 @@ def test_agglomerate_float_order_flip():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+@pytest.mark.parametrize("case", ["free", "constrained"])
+@pytest.mark.parametrize("seed", [5, 6, 7, 8, 9])
+def test_agglomerate_own_distances_match_jax(seed, case):
+    """Own distances on the CPU (chi-square sums in XLA's order, and the
+    size penalty's log2 in XLA's polynomial with its fused multiply-adds:
+    F1, ROADMAP.md Queue 3): every level equals the JAX package's."""
+    got, want, _ = _agglomerate_both(seed, case == "constrained")
+    assert len(want) >= 1
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_xla_log2_matches_jax():
+    """`xla_log2` equals `jax.jit(jnp.log2)` on the CPU bit for bit over
+    the size ratios' range (1e-20 up to thousands), where torch.log2 (the
+    correctly rounded one) differs in a large share of the values."""
+    import jax
+    from video_segment_tpu_torch.ops import histograms as thops
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        np.exp(rng.uniform(np.log(1e-20), np.log(1e4), 100000)),
+        rng.uniform(0.5, 2.0, 20000), rng.integers(1, 4000, 20000) / 500.0,
+        [1e-20, 1.0, 2.0, 0.5, np.sqrt(0.5)]]).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.log2)(x))
+    got = thops.xla_log2(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    plain = torch.log2(torch.from_numpy(x)).numpy()
+    assert (plain != want).mean() > 0.05
+
+
+@pytest.mark.parametrize("penalizer", [0.25, 0.4])
+@pytest.mark.parametrize("use_flow", [False, True])
+def test_combined_distance_matches_jax(use_flow, penalizer):
+    """The size-penalized SquaredOR combination equals JAX's compiled one
+    bit for bit on the CPU, with the penalizer traced as the JAX
+    agglomeration passes it (k = penalizer * float32(1 / ln 2))."""
+    import jax
+    from video_segment_tpu.ops import histograms as jhops
+    from video_segment_tpu_torch.ops import histograms as thops
+    rng = np.random.default_rng(4)
+    n = 20000
+    c, f = (rng.random(n).astype(np.float32) for _ in range(2))
+    sa, sb = (rng.integers(1, 4000, n).astype(np.float32) for _ in range(2))
+    inv = np.float32(1 / 731.0)
+    jfn = jax.jit(lambda c, f, a, b, i, p: jhops.combined_distance(
+        c, f, a, b, i, penalizer=p, use_flow=use_flow))
+    want = np.asarray(jfn(c, f, sa, sb, inv, np.float32(penalizer)))
+    got = thops.combined_distance(
+        *(torch.from_numpy(np.asarray(a)) for a in (c, f, sa, sb, inv)),
+        penalizer=penalizer, use_flow=use_flow).numpy()
+    assert (want > 0).mean() > 0.5 and (want < 1).mean() > 0.5
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("n", [16, 33, 100, 1000, 4000])
 def test_ordered_sum_matches_jax(n):
     """`ordered_sum` and `ordered_dot` reproduce the compiled JAX sums bit
@@ -260,19 +316,20 @@ def test_flow_descriptor_ops_match_jax():
                                    torch.from_numpy(edges), batch=64).numpy()
     assert (want > 0).sum() > len(edges) // 2
     np.testing.assert_array_equal(got, want)
-    # The size-penalized SquaredOR combination: XLA computes log2 with its
-    # own polynomial (and, compiled, contracts 1 - (1-c)(1-f) into an
-    # FMA); a few ulps of 1.0 apart (ROADMAP.md, Queue 3, F1).
+    # The size-penalized SquaredOR combination, compiled as the JAX
+    # agglomeration runs it: XLA's log polynomial and fused multiply-adds,
+    # reproduced exactly (ROADMAP.md, Queue 3, F1).
+    import jax
     n = 4096
     c, f = (torch.from_numpy(rng.random(n).astype(np.float32))
             for _ in range(2))
     sa, sb = (torch.from_numpy(rng.integers(1, 2000, n).astype(np.float32))
               for _ in range(2))
     inv = torch.tensor(1 / 500.0)
-    want_c = np.asarray(jhops.combined_distance(
+    want_c = np.asarray(jax.jit(jhops.combined_distance)(
         *(jnp.asarray(x.numpy()) for x in (c, f, sa, sb, inv))))
     got_c = thops.combined_distance(c, f, sa, sb, inv).numpy()
-    np.testing.assert_allclose(got_c, want_c, rtol=0, atol=4e-7)
+    np.testing.assert_array_equal(got_c, want_c)
 
 
 def test_histogram_ops_match_jax():

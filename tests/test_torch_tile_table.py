@@ -5,7 +5,10 @@ Inputs follow tests/test_tile_table.py: colours quantized to multiples of
 all exact and label equality is exact.  The plain PyTorch version must
 equal `blocked_rounds_reference` and the Pallas kernel (interpret mode);
 `blocked_layout` must equal JAX's.  The CUDA kernel is held to the plain
-version on a card.
+version on a card, on tables that stress its design: one region over a
+whole 4096-slot supertile, 4095 labels merging into one root in one round,
+fewer slots than threads, K of 1 and 12, and a table that needs every
+round.
 """
 
 import numpy as np
@@ -48,6 +51,24 @@ def flat_case(case):
     for i in (3, 4, 5):
         case[i] = np.zeros_like(case[i])
     case[6] = np.full_like(case[6], ttt.NUM_BUCKETS)
+    return tuple(case)
+
+
+def absorb_case(rng, n=2, sr=32, k=12):
+    """Flat colours, open fins, nothing blocked, and every slot's first edge
+    to slot 0 at bucket 0: once slot 0 has hooked into some root R, every
+    other root's best partner is R's region, and the next rounds hook them
+    all onto it (those above R, then those below)."""
+    case = list(flat_case(mk_case(rng, n=n, sr=sr, k=k, frac_blocked=0.0)))
+    case[8][:, 0] = 0
+    return tuple(case)
+
+
+def one_region_case(rng, n=2, sr=32, k=12):
+    """Every slot already in the region of slot 0."""
+    case = list(mk_case(rng, n=n, sr=sr, k=k))
+    case[0] = np.zeros_like(case[0])
+    case[1] = np.zeros_like(case[1])
     return tuple(case)
 
 
@@ -107,6 +128,17 @@ def test_plain_matches_oracle_and_pallas(name):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, run_pallas(case, theta, rounds, mthr))
     assert (got != np.arange(got.shape[1])[None]).any()   # merges happened
+
+
+def test_plain_absorb_matches_oracle():
+    """Every root hooks onto one region within five rounds: the plain
+    version equals `blocked_rounds_reference` and ends in one region a
+    supertile."""
+    case = absorb_case(np.random.default_rng(5), sr=4)
+    got = run_port(case, theta=300, rounds=5, merge_threshold=0.05,
+                   force_merge_weight=0.001, metric="l2")
+    np.testing.assert_array_equal(got, run_oracle(case, 300, 5, 0.05))
+    assert all(len(np.unique(row)) == 1 for row in got)
 
 
 def test_l1_and_round_budget():
@@ -181,3 +213,54 @@ def test_kernel_matches_plain_on_card(name):
     assert ttt.tile_table_rounds.launches == before + 1
     want = run_port(case, device="cuda", plain=True, **kw)
     np.testing.assert_array_equal(got, want)
+
+
+K3_CARD_CASES = {
+    # name: (table, theta, merge_threshold, rounds, metric)
+    "one_region": ("one_region", 256, 0.15, 5, "l2"),
+    "absorb": ("absorb", 300, 0.05, 5, "l2"),
+    "sr1_k1": ("sr1_k1", 256, 0.15, 5, "l2"),
+    "sr4_k12": ("sr4_k12", 256, 0.15, 5, "l1"),
+    "k1": ("k1", 2047, 0.1, 5, "l2"),
+    "all_rounds": ("all_rounds", 2047, 0.2, 5, "l2"),
+}
+
+
+def _k3_card_table(name, rng):
+    if name == "one_region":
+        return one_region_case(rng)
+    if name == "absorb":
+        return absorb_case(rng)
+    if name == "sr1_k1":
+        return mk_case(rng, n=3, sr=1, k=1)
+    if name == "sr4_k12":
+        return mk_case(rng, n=3, sr=4, k=12)
+    if name == "k1":
+        return mk_case(rng, n=4, sr=32, k=1)
+    return mk_case(rng, n=4, sr=32, k=12, frac_blocked=0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K3_CARD_CASES))
+def test_kernel_design_cases_on_card(name):
+    """The kernel equals its plain version bit for bit where its design is
+    stressed: atomics on one root (one_region: the whole supertile in one
+    label from the start; absorb: thousands of labels add their sums to one
+    root in one round), fewer slots than threads (SR 1 and 4), K = 1 and 12, the
+    blocked and finalize gates on (random tables), and a table whose fifth
+    round still merges (all_rounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernel has no CPU mode)")
+    table, theta, mthr, rounds, metric = K3_CARD_CASES[name]
+    case = _k3_card_table(table, np.random.default_rng(17))
+    kw = dict(theta=theta, rounds=rounds, merge_threshold=mthr,
+              force_merge_weight=0.001, metric=metric)
+    got = run_port(case, device="cuda", **kw)
+    want = run_port(case, device="cuda", plain=True, **kw)
+    np.testing.assert_array_equal(got, want)
+    if name in ("absorb", "one_region"):
+        assert all(len(np.unique(row)) == 1 for row in got)
+    if name == "all_rounds":
+        fewer = run_port(case, device="cuda", plain=True,
+                         **dict(kw, rounds=rounds - 1))
+        assert (fewer != want).any()

@@ -2,30 +2,44 @@
 //
 // Replaces: video_segment_tpu/ops/tile_table.py, `tile_table_rounds`
 // (Pallas `_kernel`).  One launch runs one gated schedule level's Boruvka
-// rounds over every supertile's blocked slot table: re-aggregate the
-// region statistics from the seed slots, pick each region's best
-// admissible (bucket, partner root) over its slots' top-K same-supertile
-// edges (mean-colour gate with the force-merge shortcut, finalize and
-// blocked gates), hook by alternating parity, pointer-jump to roots.  On
-// the TPU every per-label reduction and gather was a one-hot MXU
-// contraction over the (SR,128) slot grid, because the TPU has no scatter.
+// rounds over every supertile's blocked slot table: region statistics of
+// the current labels, each region's best admissible (bucket, partner root)
+// over its slots' top-K same-supertile edges (mean-colour gate with the
+// force-merge shortcut, finalize and blocked gates), hooking by alternating
+// parity, pointer jumping to roots.  On the TPU every per-label reduction
+// and gather was a one-hot MXU contraction over the (SR,128) slot grid,
+// because the TPU has no scatter.
 //
-// What bounds it here: the latency of the dependent phases of each round
-// (about ten block barriers plus the pointer-jump fixed point) and the
-// per-round re-read of the edge planes (K x 16 KB per supertile from L2 /
-// device memory).  The design keeps a supertile resident in one CTA of up
-// to 1024 threads, each owning up to four slots: slot labels, the hooking
-// table (which doubles as the per-label best-candidate table), per-label
-// finalize minima and float64 sums of size and colour live in dynamic shared
-// memory (44 bytes a slot: 176 KB at 4096 slots, under the 227 KB a block
-// may opt into).  Seed statistics stay in registers; edges and the blocked
-// flags are read from device memory.  Region means are computed where they
-// are needed from the float64 sums (rounded to float32, then divided):
-// float64 sums of the seeds' float32 statistics do not depend on the
-// atomics' order in practice, so the kernel equals its plain PyTorch
-// version bit for bit.  Distances use the JAX formula with round-to-nearest
-// intrinsics (built with -fmad=false).  The pointer jump runs in place to a
-// fixed point tested with __syncthreads_or.
+// What bounds it here: the dependent phases of each round (a handful of
+// block barriers plus the pointer-jump passes), not memory (the bound is
+// the edge and seed planes read once).  A supertile stays resident in one
+// CTA of up to 1024 threads, each owning up to four slots; its per-label
+// tables live in dynamic shared memory, 56 bytes a slot (224 KB at 4096
+// slots): float64 sums of size and colour, float32 means, the finalize
+// minimum, the best-candidate / parent table and the slot labels.  The
+// design keeps each round short:
+//  - the sums are aggregated once per launch (a slot that is its own label
+//    stores its statistics, the others add theirs) and then move with the
+//    merges: after the pointer jump every label that moved adds its sums to
+//    its new root, instead of four float64 atomics per slot and round (the
+//    card has no shared-memory float64 add: each is a compare-and-swap
+//    loop);
+//  - a label's float32 mean is divided when its sums change, not per
+//    tested edge;
+//  - a blocked region never merges, so it is a finalize minimum of 0 (no
+//    bucket is below it), and no blocked flag is read;
+//  - a live-edge mask per slot in registers: an edge that is absent, above
+//    `theta`, at or above a finalize minimum (minima only fall) or inside
+//    one region (regions only merge) stays dead for the launch, so later
+//    rounds skip its load.
+// Exactness: the plain version sums the seeds of each region in float64
+// every round; float64 sums of the seeds' float32 statistics are exact (the
+// invariant the kernel relied on before this design too), so carrying them
+// gives the same sums, and the means are rounded exactly as the plain
+// version rounds them (float32 sum over the float32 size clamped to 1).
+// Distances use the JAX formula with round-to-nearest intrinsics (built
+// with -fmad=false).  The pointer jump runs in place to a fixed point
+// tested with __syncthreads_or.
 
 #include <cuda_runtime.h>
 
@@ -46,14 +60,11 @@ constexpr int L = 128;
 constexpr int PBITS = 12;
 constexpr int PMASK = (1 << PBITS) - 1;
 constexpr int MAX_SLOTS = 1 << PBITS;
+constexpr int MAX_K = 32;             // bits of the live-edge mask
 constexpr int THREADS = 1024;
 constexpr int PER_THREAD = MAX_SLOTS / THREADS;
-
-__device__ __forceinline__ float label_mean(const double* sum,
-                                            const double* size, int l) {
-  const float den = fmaxf((float)size[l], 1.0f);
-  return __fdiv_rn((float)sum[l], den);
-}
+constexpr int SLOT_BYTES = 4 * sizeof(double) + 3 * sizeof(float) +
+                           3 * sizeof(int);
 
 __device__ __forceinline__ float dist32(float a0, float a1, float a2,
                                         float b0, float b1, float b2,
@@ -70,6 +81,46 @@ __device__ __forceinline__ float dist32(float a0, float a1, float a2,
   return __fsqrt_rn(__fmul_rn(ss, 1.0f / 3.0f));
 }
 
+// Slot j's scan: its best admissible packed (bucket, partner root) over
+// its live edges (bits of m), clearing the bits of edges found dead.
+__device__ __forceinline__ int scan_slot(const int* __restrict__ edg, int j,
+                                         int S, unsigned& m, int own,
+                                         const int* lab, const int* fin_t,
+                                         const float* m0, const float* m1,
+                                         const float* m2,
+                                         const TableParams& prm, bool l1) {
+  const int ofin = fin_t[own];
+  const float om0 = m0[own], om1 = m1[own], om2 = m2[own];
+  int best = INT_MAX;
+  for (unsigned rest = m; rest != 0; rest &= rest - 1) {
+    const int k = __ffs(rest) - 1;
+    const int e = edg[(long long)k * S + j];
+    const int b = e >> PBITS;
+    const int nb = lab[min(e & PMASK, S - 1)];
+    if (b >= ofin || nb == own || b >= fin_t[nb]) {
+      m &= ~(1u << k);                 // dead for the rest of the launch
+      continue;
+    }
+    float d = dist32(om0, om1, om2, m0[nb], m1[nb], m2[nb], l1);
+    const float w_eff = __fmul_rn((float)b, 1.0f / 2048.0f);
+    if (w_eff < prm.force_merge_weight && d < 0.2f) d = 0.0f;
+    if (d < prm.merge_threshold) best = min(best, (b << PBITS) | nb);
+  }
+  return best;
+}
+
+// Slot j's edges that are present and at most theta, as a bit mask.
+__device__ __forceinline__ unsigned live_edges(const int* __restrict__ edg,
+                                               int j, int S, int K,
+                                               int theta) {
+  unsigned m = 0;
+  for (int k = 0; k < K; ++k) {
+    const int e = edg[(long long)k * S + j];
+    if (e != INT_MAX && (e >> PBITS) <= theta) m |= 1u << k;
+  }
+  return m;
+}
+
 __global__ void __launch_bounds__(THREADS)
 tile_table_kernel(const int* __restrict__ labr, const int* __restrict__ labc,
                   const float* __restrict__ size,
@@ -83,115 +134,143 @@ tile_table_kernel(const int* __restrict__ labr, const int* __restrict__ labc,
   double* s_c0 = s_size + S;
   double* s_c1 = s_c0 + S;
   double* s_c2 = s_c1 + S;
-  int* lab = (int*)(s_c2 + S);         // [S] current root per slot
-  int* par = lab + S;                  // [S] best candidate, then parent
-  int* fin_t = par + S;                // [S] per-label finalize minimum
+  float* m0 = (float*)(s_c2 + S);      // [S] per-label means (float32;
+  float* m1 = m0 + S;                  // NaN in m0: sums changed)
+  float* m2 = m1 + S;
+  int* fin_t = (int*)(m2 + S);         // [S] finalize minimum (0: blocked)
+  int* par = fin_t + S;                // [S] best candidate, then parent
+  int* lab = par + S;                  // [S] current root per slot
 
   const long long base = (long long)blockIdx.x * S;
-  const int* blk = blocked + base;
   const int* edg = edges + base * K;
   const int tid = threadIdx.x;
+  const int nth = blockDim.x;
   const bool l1 = prm.metric_l1 != 0;
+  const float stale = __int_as_float(0x7fffffff);
 
-  // Seed statistics of this thread's slots, kept in registers.
-  float sz[PER_THREAD], a0[PER_THREAD], a1[PER_THREAD], a2[PER_THREAD];
-  int fn[PER_THREAD];
+  // -- phase: the seed statistics summed by label.  A slot that is its own
+  // label stores its statistics; the others then add theirs atomically.
+#pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
-    const int j = tid + q * blockDim.x;
-    if (j < S) {
-      sz[q] = size[base + j];
-      a0[q] = c0[base + j];
-      a1[q] = c1[base + j];
-      a2[q] = c2[base + j];
-      fn[q] = fin[base + j];
-      lab[j] = labr[base + j] * L + labc[base + j];
+    const int j = tid + q * nth;
+    if (j >= S) break;
+    const int l = labr[base + j] * L + labc[base + j];
+    const bool own = l == j;
+    lab[j] = l;
+    s_size[j] = own ? (double)size[base + j] : 0.0;
+    s_c0[j] = own ? (double)c0[base + j] : 0.0;
+    s_c1[j] = own ? (double)c1[base + j] : 0.0;
+    s_c2[j] = own ? (double)c2[base + j] : 0.0;
+    fin_t[j] = own ? fin[base + j] : INT_MAX;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int j = tid + q * nth;
+    if (j >= S) break;
+    const int l = lab[j];
+    if (l != j) {
+      atomicAdd(&s_size[l], (double)size[base + j]);
+      atomicAdd(&s_c0[l], (double)c0[base + j]);
+      atomicAdd(&s_c1[l], (double)c1[base + j]);
+      atomicAdd(&s_c2[l], (double)c2[base + j]);
+      atomicMin(&fin_t[l], fin[base + j]);
     }
+    // A blocked region never merges: its minimum becomes 0, below every
+    // bucket (only labels in use are ever read).
+    if (blocked[base + j]) atomicMin(&fin_t[j], 0);
   }
   __syncthreads();
 
+  // Live-edge masks, bit k of slot (tid + q * nth).
+  unsigned live[PER_THREAD];
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int j = tid + q * nth;
+    live[q] = j < S ? live_edges(edg, j, S, K, prm.theta) : 0u;
+  }
+
   int idle = 0;
   for (int i = 0; i < prm.rounds && idle < 2; ++i) {
-    for (int j = tid; j < S; j += blockDim.x) {
-      s_size[j] = 0.0;
-      s_c0[j] = 0.0;
-      s_c1[j] = 0.0;
-      s_c2[j] = 0.0;
-      fin_t[j] = INT_MAX;
-      par[j] = INT_MAX;
-    }
-    __syncthreads();
+    // -- phase: means of the sums that changed; clear the candidates.
+#pragma unroll
     for (int q = 0; q < PER_THREAD; ++q) {
-      const int j = tid + q * blockDim.x;
-      if (j < S) {
-        const int l = lab[j];
-        atomicAdd(&s_size[l], (double)sz[q]);
-        atomicAdd(&s_c0[l], (double)a0[q]);
-        atomicAdd(&s_c1[l], (double)a1[q]);
-        atomicAdd(&s_c2[l], (double)a2[q]);
-        atomicMin(&fin_t[l], fn[q]);
+      const int l = tid + q * nth;
+      if (l >= S) break;
+      if (i == 0 || isnan(m0[l])) {
+        const float den = fmaxf((float)s_size[l], 1.0f);
+        m0[l] = __fdiv_rn((float)s_c0[l], den);
+        m1[l] = __fdiv_rn((float)s_c1[l], den);
+        m2[l] = __fdiv_rn((float)s_c2[l], den);
       }
+      par[l] = INT_MAX;
     }
     __syncthreads();
 
-    // Best admissible packed (bucket, partner root) per slot, min-reduced
-    // into its region's entry of `par`.
-    for (int j = tid; j < S; j += blockDim.x) {
+    // -- phase: best admissible packed (bucket, partner root) per slot,
+    // min-reduced into its region's entry of `par`.
+#pragma unroll
+    for (int q = 0; q < PER_THREAD; ++q) {
+      if (live[q] == 0) continue;
+      const int j = tid + q * nth;
       const int own = lab[j];
-      if (blk[own]) continue;
-      const int ofin = fin_t[own];
-      const float om0 = label_mean(s_c0, s_size, own);
-      const float om1 = label_mean(s_c1, s_size, own);
-      const float om2 = label_mean(s_c2, s_size, own);
-      int best = INT_MAX;
-      for (int k = 0; k < K; ++k) {
-        const int e = edg[(long long)k * S + j];
-        if (e == INT_MAX) continue;
-        const int b = e >> PBITS;
-        if (b > prm.theta || b >= ofin) continue;
-        const int p = min(e & PMASK, S - 1);
-        const int nb = lab[p];
-        if (nb == own || b >= fin_t[nb] || blk[nb]) continue;
-        float d = dist32(om0, om1, om2, label_mean(s_c0, s_size, nb),
-                         label_mean(s_c1, s_size, nb),
-                         label_mean(s_c2, s_size, nb), l1);
-        const float w_eff = __fmul_rn((float)b, 1.0f / 2048.0f);
-        if (w_eff < prm.force_merge_weight && d < 0.2f) d = 0.0f;
-        if (!(d < prm.merge_threshold)) continue;
-        best = min(best, (b << PBITS) | nb);
-      }
+      const int best = scan_slot(edg, j, S, live[q], own, lab, fin_t, m0,
+                                 m1, m2, prm, l1);
       if (best != INT_MAX) atomicMin(&par[own], best);
     }
     __syncthreads();
 
-    // Parity hooking of region roots onto their best partners.
+    // -- phase: parity hooking of region roots onto their best partners.
     const bool up = (i % 2) == 0;
     bool have_any = false;
-    for (int j = tid; j < S; j += blockDim.x) {
-      const int bt = par[j];
+#pragma unroll
+    for (int q = 0; q < PER_THREAD; ++q) {
+      const int l = tid + q * nth;
+      if (l >= S) break;
+      const int bt = par[l];
       const bool have = bt != INT_MAX;
       const int pt = bt & PMASK;
       have_any |= have;
-      par[j] = (have && ((pt > j) == up)) ? pt : j;
+      par[l] = (have && ((pt > l) == up)) ? pt : l;
     }
     const bool nhave = __syncthreads_or(have_any);
 
-    // Pointer jumping in place: every write replaces a parent by one of its
-    // ancestors, so any interleaving reaches the same roots.
+    // -- phase: pointer jumping in place; every write replaces a parent by
+    // one of its ancestors, so any interleaving reaches the same roots.
     for (;;) {
       bool changed = false;
-      for (int j = tid; j < S; j += blockDim.x) {
-        const int p = par[j];
+#pragma unroll
+      for (int q = 0; q < PER_THREAD; ++q) {
+        const int l = tid + q * nth;
+        if (l >= S) break;
+        const int p = par[l];
         const int pp = par[p];
         if (pp != p) {
-          par[j] = pp;
+          par[l] = pp;
           changed = true;
         }
       }
       if (!__syncthreads_or(changed)) break;
     }
 
+    // -- phase: relabel the slots; every label that moved adds its sums
+    // and finalize minimum to its root and marks the root's mean stale (a
+    // root never moves, and a label that moved is read only here, so the
+    // adds race with nothing).
     bool moved_any = false;
-    for (int j = tid; j < S; j += blockDim.x) {
+#pragma unroll
+    for (int q = 0; q < PER_THREAD; ++q) {
+      const int j = tid + q * nth;
+      if (j >= S) break;
+      const int r = par[j];
+      if (r != j) {
+        atomicAdd(&s_size[r], s_size[j]);
+        atomicAdd(&s_c0[r], s_c0[j]);
+        atomicAdd(&s_c1[r], s_c1[j]);
+        atomicAdd(&s_c2[r], s_c2[j]);
+        atomicMin(&fin_t[r], fin_t[j]);
+        m0[r] = stale;
+      }
       const int nl = par[lab[j]];
       moved_any |= nl != lab[j];
       lab[j] = nl;
@@ -200,7 +279,10 @@ tile_table_kernel(const int* __restrict__ labr, const int* __restrict__ labc,
     idle = !nhave ? 2 : (moved ? 0 : idle + 1);
   }
 
-  for (int j = tid; j < S; j += blockDim.x) {
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int j = tid + q * nth;
+    if (j >= S) break;
     outr[base + j] = lab[j] / L;
     outc[base + j] = lab[j] % L;
   }
@@ -217,8 +299,8 @@ extern "C" int tile_table_launch(const void* labr, const void* labc,
                                  void* stream) {
   const int S = SR * L;
   if (N <= 0 || SR <= 0) return 0;
-  if (S > MAX_SLOTS || K < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)S * (4 * sizeof(double) + 3 * sizeof(int));
+  if (S > MAX_SLOTS || K < 0 || K > MAX_K) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)S * SLOT_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       tile_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -235,7 +317,7 @@ extern "C" int tile_table_launch(const void* labr, const void* labc,
 // out: registers a thread, local (spill) bytes a thread, static and
 // dynamic shared memory bytes a CTA, threads a CTA, resident CTAs an SM.
 extern "C" int tile_table_resources(int* out) {
-  const int smem = (int)(MAX_SLOTS * (4 * sizeof(double) + 3 * sizeof(int)));
+  const int smem = MAX_SLOTS * SLOT_BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       tile_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -159,14 +159,81 @@ def edge_flow_distance(flow_hist: torch.Tensor, flow_cnt: torch.Tensor,
     return torch.cat(out)
 
 
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add (the float32
+    product is exact in float64; the float64 sum is rounded to float32)."""
+    a = a.double()
+    b = b.double() if torch.is_tensor(b) else b
+    c = c.double() if torch.is_tensor(c) else c
+    return (a * b + c).float()
+
+
+def _f32(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+# XLA's CPU `log_f32` (a Cephes-style polynomial in its LLVM IR), constants
+# as the compiled code holds them.
+_hex = float.fromhex
+_LOG_SQRTHF = _hex("0x1.6a09e6p-1")
+_LOG_P = tuple(tuple(map(_hex, p)) for p in (
+    ("0x1.204376p-4", "-0x1.d7a370p-4", "0x1.de4a34p-4"),
+    ("-0x1.fcba9ep-4", "0x1.23d37ep-3", "-0x1.555ca0p-3"),
+    ("0x1.999d58p-3", "-0x1.fffff8p-3", "0x1.555554p-2")))
+_LOG_Q1 = _hex("-0x1.bd0106p-13")   # low part of ln 2
+_LOG_Q2 = _hex("0x1.63p-1")         # high part of ln 2 (0.693359375)
+_INV_LN2 = _hex("0x1.715476p+0")    # float32(1 / ln 2): log2 = log * this
+_FLT_MIN = _hex("0x1p-126")
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log, bit for bit as the JAX package's compiled (XLA
+    CPU) code computes it: the exponent and a mantissa in [sqrt(1/2),
+    sqrt(2)) from the float32 bit pattern, a degree-8 polynomial in three
+    Horner chains, each step a fused multiply-add where the object code of
+    `jit(combined_distance)` holds one (emulated by `_fma`)."""
+    x = x.float()
+    xc = torch.clamp(x, min=_FLT_MIN)
+    bits = xc.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x807FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _LOG_SQRTHF
+    xr = (m - 1.0) + torch.where(small, m, 0.0)
+    e = e - small.float()
+    z = xr * xr
+    z3 = z * xr
+    y1, y2, y3 = (_fma(_fma(xr, p0, p1), xr, p2) for p0, p1, p2 in _LOG_P)
+    y = _fma(_fma(y1, z3, y2), z3, y3)
+    y = _fma(y, z3, e * _LOG_Q1)
+    r = _fma(e, _LOG_Q2, _fma(z, -0.5, xr) + y)
+    r = torch.where(x == 0, -torch.inf, r)
+    r = torch.where(x == torch.inf, torch.inf, r)
+    return torch.where((x < 0) | torch.isnan(x), torch.nan, r)
+
+
+def xla_log2(x: torch.Tensor) -> torch.Tensor:
+    """`jax.jit(jnp.log2)` on the CPU bit for bit: `xla_log` times
+    float32(1 / ln 2), rounded."""
+    return xla_log(x) * _INV_LN2
+
+
 def combined_distance(color_d, flow_d, size_a, size_b, inv_median_size,
                       penalizer: float = 0.25, use_flow: bool = True):
-    """SquaredORDistanceSizePenalized over [appearance, flow] + penalizer."""
+    """SquaredORDistanceSizePenalized over [appearance, flow] + penalizer,
+    in the float order of the JAX package's compiled agglomeration, so that
+    the quantized distances match it bit for bit: 1 - (1-c)(1-f) as one
+    fused multiply-add, XLA's log polynomial (`xla_log`), penalizer / ln 2
+    folded into one float32 factor k = penalizer * float32(1 / ln 2), and
+    1 + k ln x as one fused multiply-add.  The same on every device: on the
+    card its extra elementwise launches did not lengthen the main path's
+    region stage (scripts/size_penalty_cost.py)."""
     prod = 1.0 - color_d
     if use_flow:
-        prod = prod * (1.0 - flow_d)
-    base = (1.0 - prod) * (1.0 - prod)
+        q = _fma(-prod, 1.0 - flow_d, 1.0)
+    else:
+        q = 1.0 - prod
     min_sz = torch.minimum(size_a, size_b)
-    scale = torch.clamp(1.0 + penalizer * torch.log2(
-        torch.clamp(min_sz * inv_median_size, min=1e-20)), max=1.0)
-    return torch.clamp(base * scale, 0.0, 1.0)
+    ln = xla_log(torch.clamp(min_sz * inv_median_size, min=1e-20))
+    k = _f32(_f32(penalizer) * _INV_LN2)
+    scale = torch.clamp(_fma(ln, k, 1.0), max=1.0)
+    return torch.clamp(q * q * scale, 0.0, 1.0)

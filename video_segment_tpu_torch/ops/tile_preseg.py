@@ -10,14 +10,18 @@ ids (unpadded frame geometry) and `cc.pointer_jump` collapses the chains.
 
 Out-of-frame pixels of a ragged edge tile are masked out (the JAX version
 pads them with 1e6 colours, which no edge can join).  The distance is the
-JAX kernel's float32 formula; the CUDA kernel (`csrc/tile_preseg.cu`)
-rounds each step like the plain version, so the two agree bit for bit.
+JAX kernel's float32 formula; the CUDA kernel (`csrc/tile_preseg.cu`, one
+warp a tile, labels in registers) rounds each step like the plain version
+and stops a tile at its first iteration that changes no label (the fixed
+point, which every later iteration repeats), so the two agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from video_segment_tpu_torch.ops import cc
@@ -26,6 +30,7 @@ from video_segment_tpu_torch.ops.tile_felz import (NPIX, TILE_H, TILE_W,
                                                    _to_tiles)
 
 _BIG = 2 ** 31 - 1      # "no neighbour" in the plain version's min
+TILES_PER_CTA = 2       # WARPS in csrc/tile_preseg.cu: one warp a tile
 
 
 def _global_ids(lab: torch.Tensor, t: int, h: int, w: int) -> torch.Tensor:
@@ -82,6 +87,35 @@ def flood_plain(vol: torch.Tensor, threshold: float, metric: str,
     return _global_ids(lab, t, h, w)
 
 
+@functools.lru_cache(maxsize=64)
+def flood_key(threshold: float) -> float:
+    """The largest float32 q >= 0 whose correctly rounded float32 square
+    root is <= float32(threshold) (-1 if there is none, +inf if every q
+    qualifies).  The square root is monotone, so `sqrt32(q) <= threshold`
+    holds exactly when `q <= flood_key(threshold)`: the kernel's l2 edge
+    test needs no square root.  Found by bisection over the bit patterns of
+    non-negative float32 values (ordered like the values), with NumPy's
+    correctly rounded float32 square root."""
+    thr = np.float32(threshold)
+
+    def ok(bits: int) -> bool:
+        return bool(np.sqrt(np.array(bits, np.int32).view(np.float32))
+                    <= thr)
+
+    lo, hi = 0, 0x7F800000                  # +0.0, +inf
+    if not ok(lo):
+        return -1.0
+    if ok(hi):
+        return float("inf")
+    while hi - lo > 1:                      # ok(lo), not ok(hi)
+        mid = (lo + hi) // 2
+        if ok(mid):
+            lo = mid
+        else:
+            hi = mid
+    return float(np.array(lo, np.int32).view(np.float32))
+
+
 def _collapse(roots: torch.Tensor) -> torch.Tensor:
     return cc.pointer_jump(roots.reshape(-1)).reshape(roots.shape)
 
@@ -104,8 +138,8 @@ def _lib():
     if not getattr(lib, "_vst_typed", False):
         vp = ctypes.c_void_p
         ci = ctypes.c_int
-        lib.tile_preseg_launch.argtypes = [vp, vp, ci, ci, ci, ctypes.c_float,
-                                           ci, ci, vp]
+        lib.tile_preseg_launch.argtypes = [vp, vp, vp, ci, ci, ci,
+                                           ctypes.c_float, ci, ci, vp]
         lib.tile_preseg_launch.restype = ctypes.c_int
         lib._vst_typed = True
     return lib
@@ -135,8 +169,12 @@ def tile_presegment(vol: torch.Tensor, threshold: float = 0.002,
 
 
 def flood_kernel(vol: torch.Tensor, threshold: float, metric: str,
-                 iters: int) -> torch.Tensor:
-    """Launch the CUDA kernel: `flood_plain`'s output, on the card."""
+                 iters: int, tile_iters: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """Launch the CUDA kernel: `flood_plain`'s output, on the card.  With
+    `tile_iters` (int32, one entry per (frame, tile) in row-major tile
+    order), the kernel also writes how many iterations changed a label in
+    each tile."""
     if vol.device.type != "cuda":
         raise ValueError(f"unsupported device {vol.device}")
     if not vol.is_contiguous():
@@ -144,13 +182,22 @@ def flood_kernel(vol: torch.Tensor, threshold: float, metric: str,
     t, h, w, _ = vol.shape
     if t * h * w >= 2 ** 31:
         raise ValueError("volume too large for int32 voxel ids")
+    n_tiles = t * -(-h // TILE_H) * -(-w // TILE_W)
+    if tile_iters is not None and (
+            tile_iters.device != vol.device or tile_iters.dtype != torch.int32
+            or tile_iters.numel() != n_tiles
+            or not tile_iters.is_contiguous()):
+        raise ValueError(f"tile_iters must be {n_tiles} contiguous int32 on "
+                         f"{vol.device}")
     out = torch.empty((t, h, w), dtype=torch.int32, device=vol.device)
     lib = _lib()
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream(vol.device).cuda_stream
-        err = lib.tile_preseg_launch(vol.data_ptr(), out.data_ptr(), t, h, w,
-                                     float(threshold), int(metric == "l1"),
-                                     int(iters), stream)
+        err = lib.tile_preseg_launch(
+            vol.data_ptr(), out.data_ptr(),
+            None if tile_iters is None else tile_iters.data_ptr(), t, h, w,
+            float(threshold) if metric == "l1" else flood_key(threshold),
+            int(metric == "l1"), int(iters), stream)
     if err:
         raise RuntimeError(f"tile_preseg kernel launch failed: CUDA error "
                            f"{err}")

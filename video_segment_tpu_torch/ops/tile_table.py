@@ -13,10 +13,13 @@ jumping resolves the chains.  A supertile stops when a round finds no
 candidate, after two rounds that moved nothing, or after `rounds` rounds.
 
 Per-label colour sums are float64 (one sum per label, rounded to float32,
-then divided by the float32 size), so the kernel's atomic order cannot
-move a mean: the CUDA kernel (`csrc/tile_table.cu`) and
-`tile_table_rounds_plain` agree bit for bit.  A region is blocked iff its
-root slot is (blocked slots never merge, so that is the region's flag).
+then divided by the float32 size): float64 sums of the seeds' float32
+statistics are exact, so neither the kernel's atomic order nor its
+carrying of the sums from round to round (a moving label adds its sums to
+its new root) can move a mean, and the CUDA kernel (`csrc/tile_table.cu`)
+and `tile_table_rounds_plain` agree bit for bit.  A region is blocked iff
+its root slot is (blocked regions never merge, so that is the region's
+flag).
 Packed keys are int32 `bucket << 12 | partner` (the TPU kernel's float
 packing was an artefact of its one-hot contractions), hence at most 4096
 slots per supertile.
@@ -34,6 +37,7 @@ L = 128            # lane width of the (SR, 128) slot grid
 NUM_BUCKETS = 2048
 PBITS = 12         # partner bits of packed (bucket << PBITS | partner) keys
 MAX_SLOTS = 1 << PBITS
+MAX_K = 32         # edges a slot (the kernel's live-edge mask has 32 bits)
 I32MAX = 2 ** 31 - 1
 
 
@@ -177,8 +181,8 @@ def tile_table_rounds(labr, labc, size, c0, c1, c2, fin, blocked, edges,
     int32 finalize level of each slot's region, blocked int32 (1 = the
     slot's region may not merge; read at the root slot), edges int32 packed
     bucket << 12 | partner slot (I32MAX absent; cross-supertile edges
-    already absent).  SR * 128 <= 4096.  Returns (labr, labc) after the
-    rounds.
+    already absent).  SR * 128 <= 4096, K <= 32.  Returns (labr, labc)
+    after the rounds.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs
     `tile_table_rounds_plain`.
@@ -204,6 +208,8 @@ def tile_table_rounds(labr, labc, size, c0, c1, c2, fin, blocked, edges,
             raise TypeError(f"{name} must be {want}, got {x.dtype}")
     if edges.dtype != torch.int32:
         raise TypeError(f"edges must be int32, got {edges.dtype}")
+    if edges.shape[1] > MAX_K:
+        raise ValueError(f"{edges.shape[1]} edges a slot exceed {MAX_K}")
     for name, x in (*planes.items(), ("edges", edges)):
         if x.device != labr.device:
             raise ValueError(f"{name} on {x.device}, labr on {labr.device}")
