@@ -13,7 +13,8 @@ Phases (each prints one line; any failure exits non-zero):
     bit; ms per 272x480 frame on a textured, a clip and a flat frame;
  4. K2 tile_reduce_min vs its plain PyTorch version on the card, and the
     time of one library call (scatter_reduce_ "amin" plus a gather) that
-    computes the same minima;
+    computes the same minima; K2 again at one band's shape of the banded
+    480x854 path, (13,21,432,480);
  5. the main path: segment_frames(use_flow=False, device="cuda") over a
     seeded 60-frame 272x480 synthetic clip (bench config 2's geometry),
     with launch counts proving K1 and K2 ran;
@@ -35,7 +36,18 @@ Phases (each prints one line; any failure exits non-zero):
 13. the flow path: segment_frames(use_flow=True, device="cuda") over 41
     frames, launch counts proving K1 and K2 ran;
 14. the flow dense stage, card vs CPU on the same host flow arrays;
-15. no module of the JAX package (video_segment_tpu) and no jax was
+15. the banded path: segment_frames(use_flow=True, device="cuda") at
+    default options over the seeded clip made 480 wide and 854 tall (bench
+    config 3's geometry), 41 frames: 2 row bands and 10 pad rows, output
+    frames of the true 854 rows, every pixel labelled, launch counts
+    proving K1 ran once per frame and K2 once per band per chunk solve;
+16. the banded dense stage (flow off, 5 frames), card vs CPU (boundary F);
+17. one 480x854 chunk on the card solved in 2 bands and, with
+    max_solve_voxels raised, in one band: boundary F between them and the
+    seconds of both;
+18. checkpoint kill-and-resume on the card over the 272x480 clip (dense and
+    region stage, flow off), bitwise against the straight run;
+19. no module of the JAX package (video_segment_tpu) and no jax was
     imported.
 Then a JSON line of per-kernel results (time, launches on the main path,
 bound, plain and library times), the card's name and power limit from
@@ -53,6 +65,7 @@ import numpy as np
 import torch
 
 H, W = 272, 480
+BH, BW = 854, 480    # the banded path: bench config 3's geometry
 N_FRAMES = 60
 N_PATH_FRAMES = 41   # the flood and supertile paths: 3 chunk solves
 KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table")
@@ -131,13 +144,15 @@ def textured(rng, shape, sigma):
     return ndi.gaussian_filter(vol, (0, sigma, sigma, 0)).astype(np.float32)
 
 
-def synthetic_clip(n: int, seed: int = 0, background: bool = False):
+def synthetic_clip(n: int, seed: int = 0, background: bool = False,
+                   h: int = H, w: int = W):
     """Moving piecewise-smooth textured shapes over a background texture
-    that pans 2 px left a frame, plus sensor noise: BGR uint8 (H, W)
-    frames.  With `background`, also the (H, W) masks of the pixels that
+    that pans 2 px left a frame, plus sensor noise: BGR uint8 (h, w)
+    frames.  With `background`, also the (h, w) masks of the pixels that
     no shape covers."""
     import scipy.ndimage as ndi
     rng = np.random.default_rng(seed)
+    H, W = h, w
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     pan = 2 * n
     tex = ndi.gaussian_filter(rng.normal(0, 1, (H, W + pan, 3)),
@@ -312,7 +327,8 @@ def run_stream(stream, dev) -> tuple:
 def path_summary(out, stream, wall, peak, sets) -> str:
     stages = {k: round(v, 3) for k, v in stream.stage_seconds.items()}
     rounds = [int(d[:, 1].sum()) for d in stream.solve_diag]
-    return (f"{len(out)} frames {W}x{H} in {wall:.2f}s = "
+    return (f"{len(out)} frames {out[0].frame_width}x{out[0].frame_height} "
+            f"in {wall:.2f}s = "
             f"{len(out) / wall:.3f} fps; stage seconds {stages}; chunk solves "
             f"{len(stream.solve_diag)} (merge rounds {rounds}; live regions "
             f"after each level {[d[:, 2].tolist() for d in stream.solve_diag]}"
@@ -324,7 +340,8 @@ def dense_level0(frames, options, params, device, flows=None) -> np.ndarray:
     """Level-0 label images of the dense stage (one flush chunk), fed the
     per-frame host flow arrays `flows` (None for the first) if given."""
     from video_segment_tpu_torch.core import dense
-    ds = dense.DenseSegmentation(options, W, H, solver_params=params,
+    h, w = frames[0].shape[:2]
+    ds = dense.DenseSegmentation(options, w, h, solver_params=params,
                                  device=device)
     res = []
     for i, fr in enumerate(frames):
@@ -516,6 +533,45 @@ def main() -> int:
         f"gather) {k2_lib_ms:.4f} ms; bound {k2_bound_ms * 1e3:.1f} us "
         f"({k2_by})")
     del keys, red_k, red_p, seg, own, keys2, tiles
+    # K2 at one band of the banded 480x854 path: (13,21,432,480).
+    bh = (BH + 10) // 2
+    lab_b = tf.tile_felzenszwalb(torch.from_numpy(
+        textured(rng, (3, bh, BW), 1.5)).to(dev), **k1_kw)[0]
+    lab_b = torch.cat([lab_b] * 7)[:t_solve]
+    yx = lab_b % (bh * BW)
+    labr_b = ((yx // BW) % tf.TILE_H).to(torch.int32).contiguous()
+    labc_b = (yx % BW % tf.TILE_W).to(torch.int32).contiguous()
+    keys_b = torch.randint(0, 2046 << 20, (13, t_solve, bh, BW),
+                           generator=gen, dtype=torch.int32, device=dev)
+    keys_b[torch.rand(keys_b.shape, generator=gen, device=dev) < 0.3] = \
+        ov.I32MAX
+    if not torch.equal(te.tile_reduce_min(labr_b, labc_b, keys_b),
+                       te.tile_reduce_min_plain(labr_b, labc_b, keys_b)):
+        raise AssertionError("K2 differs from its plain version at the band "
+                             "shape")
+    k2_band_ms = device_ms(lambda: te.tile_reduce_min(labr_b, labc_b, keys_b),
+                           30)
+    k2_band_plain_ms = cuda_ms(
+        lambda: te.tile_reduce_min_plain(labr_b, labc_b, keys_b), 3)
+    k2_band_bound_ms, k2_band_by = bound(
+        2 * keys_b.numel() * 4 + 2 * labr_b.numel() * 4,
+        {"i32": keys_b.numel()})
+    log("k2", f"band shape (13,{t_solve},{bh},{BW}) equal; kernel "
+        f"{k2_band_ms:.4f} ms, plain {k2_band_plain_ms:.4f} ms; bound "
+        f"{k2_band_bound_ms * 1e3:.1f} us ({k2_band_by}), "
+        f"{100 * k2_band_bound_ms / k2_band_ms:.1f}% of it")
+    del keys_b, labr_b, labc_b, lab_b
+    # Colours in (0, 2^-20) of the presmoothed clip: K1's float64 colour
+    # sums are exact only outside that interval.
+    n_tiny = n_zero = 0
+    for fr in frames:
+        sm = dense._preprocess_u8(torch.as_tensor(fr, device=dev),
+                                  "bilateral")
+        n_tiny += int(((sm > 0) & (sm < 2.0 ** -20)).sum())
+        n_zero += int((sm == 0).sum())
+    log("k1", f"presmoothed {N_FRAMES}-frame clip: {n_tiny} colour values in "
+        f"(0, 2^-20), {n_zero} exact zeros, of "
+        f"{N_FRAMES * H * W * 3}")
 
     # -- 5. main path -------------------------------------------------------
     from video_segment_tpu_torch import api
@@ -791,7 +847,142 @@ def main() -> int:
     if fm < 0.9:
         raise AssertionError(f"flow: card vs CPU boundary F {fm:.4f} < 0.9")
 
-    # -- 15. the port stands alone -----------------------------------------
+    # -- 15. banded path (bench config 3's geometry) ------------------------
+    t0 = time.monotonic()
+    frames_b = synthetic_clip(N_PATH_FRAMES, seed=1, h=BH, w=BW)
+    clip_s = time.monotonic() - t0
+    reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min,
+                   tp.tile_presegment, tt.tile_table_rounds)
+    stream = api.segment_frames(iter(frames_b), BW, BH, use_flow=True,
+                                device="cuda")
+    geometry = (stream.dense._bands, stream.dense._pad_rows)
+    if geometry != (2, 10):
+        raise AssertionError(f"banded path: (bands, pad rows) {geometry}, "
+                             "want (2, 10)")
+    out, wall, peak = run_stream(stream, dev)
+    counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
+              tp.tile_presegment.launches, tt.tile_table_rounds.launches)
+    sets = check_stream(out, stream, N_PATH_FRAMES)
+    if any((sf.frame_height, sf.frame_width) != (BH, BW) for sf in out):
+        raise AssertionError("banded path: output frames are not 480x854")
+    want = (N_PATH_FRAMES, 2 * n_solves_p, 0, 0)
+    if counts != want:
+        raise AssertionError(f"banded path launches K1/K2/K4/K3 {counts}, "
+                             f"want {want}")
+    banded_launches = counts
+    log("banded", path_summary(out, stream, wall, peak, sets)
+        + f"; 2 bands of {(BH + 10) // 2} rows, 10 pad rows; launches K1 "
+        f"{counts[0]} (one per padded frame) K2 {counts[1]} (one per band "
+        f"per chunk solve); clip made in {clip_s:.1f}s")
+
+    # -- 16. banded dense stage, card vs CPU --------------------------------
+    t0 = time.monotonic()
+    fm, n_reg, _ = dense_card_vs_cpu(frames_b[:5],
+                                     api.DenseSegmentationOptions())
+    log("cpu", f"banded: 5 frames {BW}x{BH}, one flush chunk (t_solve 5, 2 "
+        f"bands): boundary F {fm:.4f} (regions {n_reg}; "
+        f"{time.monotonic() - t0:.1f}s)")
+    if fm < 0.9:
+        raise AssertionError(f"banded: card vs CPU boundary F {fm:.4f} < 0.9")
+
+    # -- 17. one chunk, 2 bands vs 1 band -----------------------------------
+    level0, solve_s, peaks = {}, {}, {}
+    for name, options in (
+            ("2 bands", api.DenseSegmentationOptions()),
+            ("1 band", api.DenseSegmentationOptions(
+                max_solve_voxels=21 * BW * BH))):
+        ds = dense.DenseSegmentation(options, BW, BH, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = []
+        for fr in frames_b[:20]:
+            res += ds.process_frame(False, fr)
+        res += ds.process_frame(True)
+        torch.cuda.synchronize()
+        level0[name] = rasterize(res)
+        solve_s[name] = ds.stage_seconds["chunk_solve"]
+        peaks[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        if (ds._bands, ds._pad_rows) != ((2, 10) if name == "2 bands"
+                                         else (1, 0)):
+            raise AssertionError(f"{name}: bands {ds._bands}, pad rows "
+                                 f"{ds._pad_rows}")
+    fm = boundary_f(level0["2 bands"], level0["1 band"])
+    log("bands", f"one {BW}x{BH} chunk of 20 frames (t_solve 21, flow off), "
+        f"2 bands vs 1 band: boundary F {fm:.4f}; regions "
+        f"{ {k: int(len(np.unique(v))) for k, v in level0.items()} }; "
+        f"chunk_solve seconds { {k: round(v, 3) for k, v in solve_s.items()} }"
+        f"; peak device memory MiB "
+        f"{ {k: round(v, 1) for k, v in peaks.items()} }")
+    if fm < 0.9:
+        raise AssertionError(f"2 bands vs 1 band boundary F {fm:.4f} < 0.9")
+    del level0, frames_b
+
+    # -- 18. checkpoint kill-and-resume on the card -------------------------
+    import os
+    import tempfile
+    import warnings
+
+    from video_segment_tpu_torch.runtime import checkpoint
+
+    def stages():
+        return (dense.DenseSegmentation(api.DenseSegmentationOptions(), W, H,
+                                        device="cuda"),
+                region.RegionSegmentation(api.RegionSegmentationOptions(
+                    use_flow=False), W, H, device="cuda"))
+
+    def feed(ds, rs, chunk, start, flush):
+        res = []
+        for i, fr in enumerate(chunk, start=start):
+            rs.add_frame(i, fr)
+            res += rs.process_frames(False, ds.process_frame(False, fr))
+        if flush:
+            res += rs.process_frames(True, ds.process_frame(True))
+        return res
+
+    def signature(frames_out):
+        return [(sf.frame_index, sf.region_ids.tobytes(),
+                 sf.interval_counts.tobytes(), sf.ys.tobytes(),
+                 sf.lxs.tobytes(), sf.rxs.tobytes(),
+                 None if sf.hierarchy is None else
+                 [(lv.ids.tobytes(), np.asarray(lv.sizes).tobytes(),
+                   None if lv.parent_ids is None
+                   else np.asarray(lv.parent_ids).tobytes())
+                  for lv in sf.hierarchy]) for sf in frames_out]
+
+    t0 = time.monotonic()
+    cut = 25
+    # Float atomics make a sum's last bit depend on the launch's schedule;
+    # the bitwise comparison runs both halves with deterministic kernels.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            straight = feed(*stages(), frames_p, 0, True)
+            ds1, rs1 = stages()
+            first = feed(ds1, rs1, frames_p[:cut], 0, False)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "ckpt.pkl")
+                checkpoint.save(path, ds1, rs1, frames_consumed=cut)
+                ckpt_mib = os.path.getsize(path) / 2 ** 20
+                del ds1, rs1
+                ds2, rs2 = stages()
+                if checkpoint.restore(path, ds2, rs2) != cut:
+                    raise AssertionError("checkpoint: frames_consumed lost")
+            if ds2._buffer[0].device.type != "cuda":
+                raise AssertionError("checkpoint restored off the card")
+            resumed = first + feed(ds2, rs2, frames_p[cut:], cut, True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if len(straight) != N_PATH_FRAMES or \
+            signature(resumed) != signature(straight):
+        raise AssertionError("checkpoint: the resumed run differs from the "
+                             "straight run")
+    log("ckpt", f"{N_PATH_FRAMES} frames {W}x{H}, killed after frame {cut} "
+        f"(checkpoint {ckpt_mib:.1f} MiB), restored into fresh stages on "
+        f"the card: RLE and hierarchies equal the straight run's bit for "
+        f"bit ({time.monotonic() - t0:.1f}s)")
+
+    # -- 19. the port stands alone -----------------------------------------
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     if jax_mods:
@@ -810,13 +1001,15 @@ def main() -> int:
              replaces="video_segment_tpu/ops/tile_felz.py:474",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by,
-             library_ms=None),
+             library_ms=None, launches_banded=banded_launches[0]),
         dict(name="tile_reduce_min", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_extract.cu",
              replaces="video_segment_tpu/ops/tile_extract.py:102",
              launches=k2_launches, max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by,
-             library_ms=k2_lib_ms),
+             library_ms=k2_lib_ms, launches_banded=banded_launches[1],
+             band_ms=k2_band_ms, band_plain_ms=k2_band_plain_ms,
+             band_bound_ms=k2_band_bound_ms),
         dict(name="tile_presegment", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_preseg.cu",
              replaces="video_segment_tpu/ops/tile_preseg.py:98",

@@ -4,10 +4,11 @@ A seeded 10-frame 24x256 clip streams through both dense stages with
 chunk_size=4 (four chunk solves, flush included), with the felz and the
 flood pre-segmentation, with supertile-gated solver levels, and with
 JAX-computed backward flow fed to both; every
-SegFrame's RLE and the level-0 hierarchies must be exact.  The clip is fed unsmoothed (presmoothing="none"): XLA's CPU
-backend contracts the filters' multiply-adds into FMAs, so smoothed frames
-differ from the port's in the last ulp; the filters are compared
-separately below, to 1 ulp-scale tolerance.
+SegFrame's RLE and the level-0 hierarchies must be exact.  Most cases feed
+the clip unsmoothed (presmoothing="none"); the filters are compared
+separately below, bit for bit (the port rounds as XLA's CPU backend
+contracts the multiply-adds, and uses XLA's exp polynomial), and one case
+streams bilateral-presmoothed frames through both stages.
 """
 
 import numpy as np
@@ -96,6 +97,18 @@ def test_dense_matches_jax():
     assert max(len(sf.region_ids) for sf in got) > 3
     assert set(ds.stage_seconds) == {"ingest_preseg", "chunk_solve",
                                      "host_tail"}
+
+
+def test_dense_bilateral_matches_jax():
+    """The default presmoothing on both sides: the bilateral filter is
+    exact against XLA's, so the dense outputs are."""
+    frames = clip(n=7)
+    opts = _options(presmoothing="bilateral")
+    want = run(jdense.DenseSegmentation(opts, W, H), frames)
+    got = run(tdense.DenseSegmentation(toptions(opts), W, H, device="cpu"),
+              frames)
+    assert_frames_equal(got, want)
+    assert max(len(sf.region_ids) for sf in got) > 2
 
 
 def jax_flows(frames):
@@ -201,22 +214,40 @@ def test_presmooth_matches_jax(mode):
     img = rng.integers(0, 256, (H, 64, 3)).astype(np.float32) / 255
     want = np.asarray(jfilters.presmooth(jnp.asarray(img), mode))
     got = tfilters.presmooth(torch.from_numpy(img), mode).numpy()
-    if mode == "gaussian":
-        # The port rounds the multiply-adds as XLA contracts them.
-        np.testing.assert_array_equal(got, want)
-    else:
-        # exp is torch's, not XLA's own polynomial: a few float32 ulps.
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # The port rounds the multiply-adds as XLA contracts them, and the
+    # bilateral weights use XLA's own exp polynomial.
+    np.testing.assert_array_equal(got, want)
+
+
+def test_xla_exp_matches_jax():
+    """`xla_exp` equals `jit(jnp.exp)` bit for bit over the bilateral
+    filter's argument range and beyond it, flushed denormals included."""
+    import jax
+    from video_segment_tpu_torch.ops.histograms import xla_exp
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(-40, 0, 400000),
+                        rng.uniform(-100, 100, 100000),
+                        -np.abs(rng.normal(0, 1e-3, 50000)),
+                        [0.0, -87.4, -88.0, 88.0, 89.0]]).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.exp)(jnp.asarray(x)))
+    got = xla_exp(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (torch.exp(torch.from_numpy(x)).numpy() != want).mean() > 0.05
 
 
 def test_finalize_labels_matches_rle_n4():
     from video_segment_tpu.ops import rle
     rng = np.random.default_rng(2)
     lab = rng.integers(0, 3, (2, 8, 11)).astype(np.int32)
-    got = tdense._finalize_labels(torch.from_numpy(lab), True).numpy()
+    got = tdense._finalize_labels(torch.from_numpy(lab), 8, True).numpy()
     for f in range(2):
         np.testing.assert_array_equal(got[f],
                                       rle.enforce_n4_connectivity(lab[f]))
+    # Pad rows are sliced off before the stencil, as in the JAX package.
+    got = tdense._finalize_labels(torch.from_numpy(lab), 6, True).numpy()
+    want = np.asarray(jdense._finalize_labels(jnp.asarray(lab), 6, True))
+    assert got.shape == (2, 6, 11)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_pointer_jump_and_cycles_match_jax():
@@ -239,13 +270,34 @@ def test_scope_raises():
         tdense.DenseSegmentation(
             TDenseSegmentationOptions(preseg_mode="watershed"), W, H,
             device="cpu")
+    # Chunks over max_solve_voxels, or solver_bands, build banded stages
+    # with the band count and pad rows the JAX package computes.
+    for (w, h), bands, pad in (((1920, 1080), 6, 24), ((480, 854), 2, 10),
+                               ((720, 1280), 3, 16), ((1080, 1920), 6, 0)):
+        tds = tdense.DenseSegmentation(TDenseSegmentationOptions(), w, h,
+                                       device="cpu")
+        jds = jdense.DenseSegmentation(DenseSegmentationOptions(), w, h)
+        assert (tds._bands, tds._pad_rows) == (jds._bands, jds._pad_rows) \
+            == (bands, pad)
+        assert tds._params.bands == bands
+    tds = tdense.DenseSegmentation(toptions(_options(solver_bands=2)), W,
+                                   H, device="cpu")
+    jds = jdense.DenseSegmentation(_options(solver_bands=2), W, H)
+    assert (tds._bands, tds._pad_rows) == (jds._bands, jds._pad_rows) \
+        == (2, 8)
+    # Too few forced bands leave a band over the voxel limit.
+    for mod, opts in ((tdense, toptions(_options(solver_bands=2,
+                                                 max_solve_voxels=10000))),
+                      (jdense, _options(solver_bands=2,
+                                        max_solve_voxels=10000))):
+        kw = dict(device="cpu") if mod is tdense else {}
+        with pytest.raises(ValueError, match="max_solve_voxels"):
+            mod.DenseSegmentation(opts, W, H, **kw)
     with pytest.raises(NotImplementedError):
-        tdense.DenseSegmentation(TDenseSegmentationOptions(), 1920, 1080,
-                                 device="cpu")
-    # Flow is ported; the banded solve is not.
-    with pytest.raises(NotImplementedError):
-        tdense.DenseSegmentation(toptions(_options(solver_bands=2)), W,
-                                 H, device="cpu")
+        from video_segment_tpu_torch.core import oversegmentation as tov
+        tdense.DenseSegmentation(
+            toptions(), W, H, device="cpu",
+            solver_params=tov.OversegParams(edge_table=False))
 
 
 def _options(**kw):

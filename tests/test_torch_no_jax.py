@@ -4,7 +4,12 @@ A subprocess blocks the five (`sys.modules[name] = None` makes their
 import raise), imports the port and its kernel modules, runs a tiny
 `segment_frames(..., device="cpu")` end to end with flow off and with its
 default flow on (the port's TV-L1 engine), and runs the dense stage with
-the flood pre-segmentation (K4) and with K3 supertile levels.
+the flood pre-segmentation (K4), with K3 supertile levels and banded
+(`solver_bands=2`), checkpoints and restores the banded stage, and drives
+the host modules the CLIs use (`runtime/pipeline`, `runtime/conversion`;
+`segment_util/render` needs protobuf through `util`, and
+`segment_util/metrics` needs cv2: both are left out, and nothing that
+`segment_frames` imports may pull them in).
 """
 
 import os
@@ -70,6 +75,40 @@ SCRIPT = textwrap.dedent("""
             res += ds.process_frame(False, fr)
         res += ds.process_frame(True)
         assert [sf.frame_index for sf in res] == list(range(7))
+    # Banded stage, checkpointed after chunk one and resumed in a fresh one.
+    import os, tempfile
+    from video_segment_tpu_torch.runtime import (checkpoint, conversion,
+                                                 pipeline)
+    bopts = DenseSegmentationOptions(chunk_size=3, solver_bands=2)
+    ds = dense.DenseSegmentation(bopts, 128, 16, device="cpu")
+    assert (ds._bands, ds._pad_rows) == (2, 0)
+    straight = []
+    for fr in frames:
+        straight += ds.process_frame(False, fr)
+    straight += ds.process_frame(True)
+    ds = dense.DenseSegmentation(bopts, 128, 16, device="cpu")
+    res = []
+    for fr in frames[:4]:
+        res += ds.process_frame(False, fr)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.pkl")
+        checkpoint.save(path, ds, frames_consumed=4)
+        ds = dense.DenseSegmentation(bopts, 128, 16, device="cpu")
+        assert checkpoint.restore(path, ds) == 4
+    for fr in frames[4:]:
+        res += ds.process_frame(False, fr)
+    res += ds.process_frame(True)
+    assert [sf.frame_index for sf in res] == list(range(7))
+    for a, b in zip(res, straight):
+        assert np.array_equal(a.region_ids, b.region_ids)
+        assert np.array_equal(a.lxs, b.lxs) and np.array_equal(a.rxs, b.rxs)
+    root = pipeline.Unit("src")
+    root.add_child(conversion.flip_bgr_unit()).add_child(
+        conversion.luminance_unit())
+    lum = [x for _, x in pipeline.UnitTree(root).run(iter(frames))]
+    assert len(lum) == 7 and lum[0].shape == (16, 128)
+    assert not any(m.endswith(("segment_util.render", "segment_util.metrics"))
+                   for m in sys.modules)
     loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and any(m == b or m.startswith(b + ".")
                             for b in BLOCKED))

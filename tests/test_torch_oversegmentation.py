@@ -135,17 +135,20 @@ def test_oversegment_knobs_match_jax(knob):
 
 def test_scope_raises():
     vol = torch.zeros((2, 8, 128, 3))
-    for p in (tov.OversegParams(bands=2),
-              tov.OversegParams(two_stage=True),
+    for p in (tov.OversegParams(two_stage=True),
               tov.OversegParams(gradient_trait=True),
               tov.OversegParams(descriptor="color_mean_variance"),
               tov.OversegParams(edge_table=False)):
         with pytest.raises(NotImplementedError):
             tov.oversegment(vol, params=p)
-    # Flow is ported; a banded solve with flow is not.
-    with pytest.raises(NotImplementedError):
+    # Flow and the banded solve are ported; a band height that is not a
+    # multiple of 8 rows raises as in the JAX package.
+    with pytest.raises(ValueError):
         tov.oversegment(vol, flow=torch.zeros((1, 8, 128, 2)),
                         params=tov.OversegParams(bands=2))
+    tov.oversegment(torch.zeros((2, 16, 128, 3)),
+                    flow=torch.zeros((1, 16, 128, 2)),
+                    params=tov.OversegParams(bands=2))
 
 
 def _flow(seed, t=T, h=H, w=W):

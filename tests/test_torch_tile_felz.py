@@ -173,3 +173,52 @@ def test_kernel_matches_plain_on_card(textured_vol, kw, inp):
         assert torch.equal(a, b), float((a - b).abs().max())
     if inp == "flat" and not kw.get("pair_merge"):
         assert torch.unique(lab_k).numel() == vol.shape[0] * 2 * 2
+
+
+def _tiny_colour_input(kind):
+    """Frames seeded with colours in (0, 2^-20), where a float64 sum of
+    float32 colours is no longer exact once it also holds ordinary ones:
+    "tiny" has nothing else, "mixed" scatters them through a textured
+    frame one channel at a time, "tails" fades bright blobs into a dark
+    floor of them (a presmoothed bright pixel's far tail)."""
+    import scipy.ndimage as ndi
+    rng = np.random.default_rng(31)
+    shape = (2, 40, 300)
+    tiny = (2.0 ** rng.uniform(-60, -20, shape + (3,))).astype(np.float32)
+    assert ((tiny > 0) & (tiny < 2.0 ** -20)).all()
+    if kind == "tiny":
+        return tiny
+    vol = ndi.gaussian_filter(rng.random(shape + (3,)),
+                              (0, 1.5, 1.5, 0)).astype(np.float32)
+    if kind == "mixed":
+        return np.where(rng.random(shape + (3,)) < 0.3, tiny, vol)
+    blobs = ndi.gaussian_filter((rng.random(shape) < 0.002)
+                                .astype(np.float64), (0, 2.0, 2.0))
+    tails = (blobs / blobs.max())[..., None] ** 4 * vol
+    return np.where(tails < 2.0 ** -20, np.minimum(tiny, 2.0 ** -21),
+                    tails).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tiny", "mixed", "tails"])
+@pytest.mark.parametrize("kw", [DENSE_KW, VARIANTS["pair_tuple"],
+                                VARIANTS["l1"]],
+                         ids=["dense", "pair_tuple", "l1"])
+def test_kernel_matches_plain_on_tiny_colours(kind, kw):
+    """K1 against its plain version, bit for bit, on colours below 2^-20:
+    the kernel's float64 colour sums are exact only for colours that are 0
+    or at least 2^-20, so a region that holds smaller ones could see its
+    mean move with the order of the sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernel has no CPU mode)")
+    vol_np = _tiny_colour_input(kind)
+    assert ((vol_np > 0) & (vol_np < 2.0 ** -20)).mean() > 0.05
+    vol = torch.from_numpy(vol_np).cuda()
+    lab_k, fin_k, st_k = ttf.tile_felzenszwalb(vol, **kw)
+    lab_p, fin_p, st_p = ttf.tile_felzenszwalb_plain(vol, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(lab_k, lab_p)
+    assert torch.equal(fin_k, fin_p)
+    for a, b in zip(st_k, st_p):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert torch.unique(lab_k).numel() < lab_k.numel() * 9 // 10  # merged

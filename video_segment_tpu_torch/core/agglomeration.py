@@ -316,7 +316,8 @@ def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
     dev = devmod.resolve(device)
     if win_hist is not None and np.asarray(win_hist).shape[0] > 0:
         raise NotImplementedError("windowed appearance histograms are not "
-                                  "ported yet (ROADMAP.md, Queue 1 item 11)")
+                                  "ported yet (ROADMAP.md, Queue 1: the knobs that "
+                                  "are off by default)")
     r = hist.shape[0]
     state = AggloState(
         _arange(r, torch.empty(0, device=dev)),

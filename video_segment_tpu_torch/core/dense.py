@@ -12,9 +12,12 @@ when the chunk is solved.  "auto" means "felz" on every device, so CPU
 runs execute the algorithm the card runs (the JAX package picks "flood"
 off a TPU).  With optical flow (a backward flow field per frame after the
 first, `core/flow.FlowField`s or arrays) the solver's temporal edges are
-displaced along it and connectedness advects centroids by it.  Scope: one
-device, unbanded solves; banded chunking and the mesh solve raise
-NotImplementedError.  The host tail (N4 fix result, compaction,
+displaced along it and connectedness advects centroids by it.  A chunk
+over `max_solve_voxels` (or `solver_bands > 1`) is solved in row bands:
+frames are edge-padded at ingest to a whole number of 8-row-aligned bands,
+the solver's pixel phases run one band at a time, and outputs are sliced
+back to the true height.  Scope: one device; the mesh solve is not
+ported.  The host tail (N4 fix result, compaction,
 connectedness, id assignment, RLE) runs the port's copies of the JAX
 package's host modules (`core/connectedness.py`, `ops/rle.py`).
 """
@@ -66,9 +69,13 @@ class SegFrame:
     moments: np.ndarray | None = None  # (R,6) ShapeMoments rows
 
 
-def _finalize_labels(lab: torch.Tensor, fix_n4: bool):
-    """Resolve N4 checkerboard diagonal crossings on the device
-    (bitwise-equal to ops/rle.enforce_n4_connectivity per frame)."""
+def _finalize_labels(lab: torch.Tensor, h: int, fix_n4: bool):
+    """Slice pad rows off the solver's label volume and resolve N4
+    checkerboard diagonal crossings on the device (bitwise-equal to
+    ops/rle.enforce_n4_connectivity per frame).  The pad rows go first: a
+    replicated bottom row would fire the crossing pattern along the true
+    bottom edge."""
+    lab = lab[:, :h]
     if not fix_n4:
         return lab
     a = lab[:, :-1, :-1]
@@ -82,10 +89,20 @@ def _finalize_labels(lab: torch.Tensor, fix_n4: bool):
     return torch.where(flip, right, lab)
 
 
-def _preprocess_u8(frame_u8: torch.Tensor, mode: str):
-    """u8 -> f32 -> presmooth (one frame, on its device)."""
+def _preprocess_u8(frame_u8: torch.Tensor, mode: str, pad_rows: int = 0):
+    """u8 -> f32 -> presmooth -> edge-pad `pad_rows` rows at the bottom
+    (one frame, on its device)."""
     img = frame_u8.to(torch.float32) * (1.0 / 255.0)
-    return filters.presmooth(img, mode)
+    img = filters.presmooth(img, mode)
+    if pad_rows:
+        img = _pad_rows_edge(img, 0, pad_rows)
+    return img
+
+
+def _pad_rows_edge(x: torch.Tensor, dim: int, pad_rows: int):
+    """Repeat the last index of `dim` (the image rows) `pad_rows` times."""
+    last = x.narrow(dim, x.shape[dim] - 1, 1)
+    return torch.cat([x] + [last] * pad_rows, dim=dim)
 
 
 class DenseSegmentation:
@@ -114,14 +131,39 @@ class DenseSegmentation:
         if not base.edge_table:
             raise NotImplementedError(
                 "the v1 pixel solver (edge_table=False) is not ported "
-                "(ROADMAP.md, Queue 1 item 13)")
-        chunk_vox = (options.chunk_size + 1) * frame_width * frame_height
-        if options.solver_bands > 1 or chunk_vox > options.max_solve_voxels:
-            raise NotImplementedError(
-                f"banded chunk solves ({chunk_vox} voxels per chunk, "
-                f"max_solve_voxels {options.max_solve_voxels}, solver_bands "
-                f"{options.solver_bands}) are not ported yet (ROADMAP.md, "
-                "Queue 1 item 8)")
+                "(ROADMAP.md, Queue 1: deliberately left out)")
+        # Large-resolution chunks: split the solve's pixel phases into
+        # spatial row bands (bounding peak memory to one band) instead of
+        # shrinking the chunk.  Bands must align to the 8-row preseg tiles;
+        # the padded rows replicate the bottom image row.
+        self._bands = 1
+        self._pad_rows = 0
+        t_solve_full = options.chunk_size + 1
+        chunk_vox = t_solve_full * frame_width * frame_height
+        forced_bands = options.solver_bands
+        if forced_bands > 1:
+            units = -(-frame_height // 8)
+            u = -(-units // forced_bands)
+            self._bands = forced_bands
+            self._pad_rows = forced_bands * u * 8 - frame_height
+            if chunk_vox // forced_bands > options.max_solve_voxels:
+                raise ValueError(
+                    f"{forced_bands} bands leave per-band pixel phases over "
+                    f"max_solve_voxels ({chunk_vox // forced_bands} > "
+                    f"{options.max_solve_voxels}); use more devices or a "
+                    f"smaller chunk_size")
+        elif chunk_vox > options.max_solve_voxels:
+            unit_vox = 8 * frame_width * t_solve_full
+            u_max = max(1, options.max_solve_voxels // unit_vox)
+            units = -(-frame_height // 8)
+            bands = min(-(-units // u_max), 16)
+            u = -(-units // bands)
+            self._bands = bands
+            self._pad_rows = bands * u * 8 - frame_height
+            import sys
+            print(f"[dense] solving {frame_width}x{frame_height} in "
+                  f"{bands} row bands (+{self._pad_rows} pad rows)",
+                  file=sys.stderr, flush=True)
         self.options = options
         self.frame_width = frame_width
         self.frame_height = frame_height
@@ -133,7 +175,7 @@ class DenseSegmentation:
             min_region_size=self.min_region_size,
             metric=options.color_distance,
             two_stage=options.two_stage_oversegment,
-            bands=1,
+            bands=self._bands,
             force_merge_weight=0.002 if options.color_distance == "l1"
             else 0.001)
         ov._check_scope(self._params)
@@ -147,7 +189,7 @@ class DenseSegmentation:
             # region table; explicit caller-set divisors are respected.
             self._params = self._params._replace(table_divisor=16)
 
-        self._buffer: list[torch.Tensor] = []   # smoothed (H,W,3)
+        self._buffer: list[torch.Tensor] = []   # smoothed (Hp,W,3)
         self._preseg_buffer: list = []          # per-frame K1 results (felz)
         # _flow_buffer[i]: backward flow of buffer frame i (None only for
         # the first video frame); FlowFields stay device-resident.
@@ -174,10 +216,11 @@ class DenseSegmentation:
         """Adopt streaming state held between chunks (e.g. a JAX
         DenseSegmentation's): `overlap_gids` (list of (H,W) int64 global-id
         planes), `max_region_id`, `chunk_start`, `chunk_id`,
-        `num_output_frames`, `buffer` (the buffered preprocessed (H,W,3)
-        float32 frames, whose pre-segmentations are recomputed here in
-        felz mode), and optionally `flow_buffer` (per buffered frame, an
-        (H,W,2) backward flow or None) with `has_flow`."""
+        `num_output_frames`, `buffer` (the buffered preprocessed float32
+        frames as the stage holds them: (H + pad rows, W, 3), already
+        padded to the band grid; their pre-segmentations are recomputed
+        here in felz mode), and optionally `flow_buffer` (per buffered
+        frame, an (H,W,2) backward flow or None) with `has_flow`."""
         self.join()
         self._overlap_gids = [np.asarray(g, np.int64)
                               for g in state["overlap_gids"]]
@@ -188,6 +231,12 @@ class DenseSegmentation:
         self._buffer = [torch.tensor(np.asarray(f, np.float32),
                                      device=self.device)
                         for f in state["buffer"]]
+        hp = self.frame_height + self._pad_rows
+        for b in self._buffer:
+            if tuple(b.shape) != (hp, self.frame_width, 3):
+                raise ValueError(
+                    f"buffered frame {tuple(b.shape)} does not match this "
+                    f"stage's padded geometry {(hp, self.frame_width, 3)}")
         self._preseg_buffer = ([self._preseg_frame(b) for b in self._buffer]
                                if self._preseg_mode == "felz" else [])
         self._flow_buffer = [None if f is None else np.asarray(f, np.float32)
@@ -199,14 +248,16 @@ class DenseSegmentation:
 
     def preprocess(self, frame_bgr_u8: np.ndarray) -> torch.Tensor:
         """uint8 BGR -> smoothed float [0,1] on the device (the frame
-        crosses to the device as uint8)."""
+        crosses to the device as uint8), padded to the band grid when the
+        solve is banded."""
         frame = torch.as_tensor(np.ascontiguousarray(frame_bgr_u8),
                                 device=self.device)
-        return _preprocess_u8(frame, self.options.presmoothing)
+        return _preprocess_u8(frame, self.options.presmoothing,
+                              self._pad_rows)
 
     def _preseg_frame(self, img: torch.Tensor):
-        """Tile-local felz pre-solve (K1) of one frame: frame-local voxel
-        label ids, finalize levels, cell-positioned region stats."""
+        """Tile-local felz pre-solve (K1) of one (padded) frame: frame-local
+        voxel label ids, finalize levels, cell-positioned region stats."""
         p = self._params
         return tile_felz.tile_felzenszwalb(
             img[None].contiguous(), schedule=p.preseg_schedule,
@@ -287,6 +338,10 @@ class DenseSegmentation:
         t_small = min(5, self.options.chunk_size + 1)
         t_solve = t_small if t <= t_small else self.options.chunk_size + 1
         pad = t_solve - t
+        # Buffered frames are already row-padded to the band grid: pad
+        # pixels replicate the bottom row and merge into the bottom-edge
+        # regions; outputs are sliced back to the true height.
+        hp = h + self._pad_rows
         vol = torch.stack(self._buffer + [self._buffer[-1]] * pad)
 
         flow = None
@@ -299,6 +354,8 @@ class DenseSegmentation:
             devs = [f.device().to(dev) if hasattr(f, "numpy_f16")
                     else torch.tensor(f, device=dev) for f in tail]
             flow = torch.stack(devs + [torch.zeros_like(devs[0])] * pad)
+            if self._pad_rows:
+                flow = _pad_rows_edge(flow, 1, self._pad_rows)
 
         tile_fin = tile_stats = None
         if self._preseg_mode == "felz":
@@ -309,7 +366,7 @@ class DenseSegmentation:
             per_frame = (self._preseg_buffer[:t]
                          + [self._preseg_buffer[t - 1]] * pad)
             offs = (torch.arange(t_solve, dtype=torch.int32, device=dev)
-                    [:, None, None] * (h * w))
+                    [:, None, None] * (hp * w))
             tile_init = torch.cat([lab for lab, _, _ in per_frame]) + offs
             tile_fin = torch.cat([fin for _, fin, _ in per_frame])
             tile_stats = tuple(torch.cat([st[i] for _, _, st in per_frame])
@@ -333,6 +390,9 @@ class DenseSegmentation:
         cid_to_gid = np.zeros(0, np.int64)
         if self._overlap_gids:
             planes = np.stack(self._overlap_gids)  # (overlap, H, W) gids
+            if self._pad_rows:
+                planes = np.pad(planes, ((0, 0), (0, self._pad_rows),
+                                         (0, 0)), mode="edge")
             cid_to_gid, compact = np.unique(planes, return_inverse=True)
             if len(cid_to_gid) > self._params.max_constraints:
                 raise ValueError(
@@ -342,19 +402,26 @@ class DenseSegmentation:
             n_constrained = 1 + self.constraint_frames
             constraints = torch.cat([
                 torch.as_tensor(compact[:n_constrained], device=dev),
-                torch.full((t_solve - n_constrained, h, w), -1,
+                torch.full((t_solve - n_constrained, hp, w), -1,
                            dtype=torch.int32, device=dev)])
-            frozen = torch.zeros((t_solve, h, w), dtype=torch.bool,
+            frozen = torch.zeros((t_solve, hp, w), dtype=torch.bool,
                                  device=dev)
             frozen[0] = True
-            # Plane 0 pre-merges to one canonical voxel per compact id;
+            # Plane 0 pre-merges to one canonical voxel per compact id
+            # -- per (id, band) in banded solves, since band-local seed
+            # compaction needs init roots inside their own band (the band
+            # groups rejoin in the frozen-group constraint merge);
             # constrained planes pre-merge within (preseg region x
-            # constraint id) groups.
-            init_sm = np.empty((n_constrained, h, w), np.int32)
-            key0 = compact[0].astype(np.int64).ravel()
+            # constraint id) groups, which never span bands.
+            init_sm = np.empty((n_constrained, hp, w), np.int32)
+            key0 = compact[0].astype(np.int64)
+            if self._bands > 1:
+                bh = hp // self._bands
+                key0 = key0 * self._bands + (np.arange(hp) // bh)[:, None]
+            key0 = key0.ravel()
             uniq, first = np.unique(key0, return_index=True)
             init_sm[0] = first[np.searchsorted(uniq, key0)] \
-                .reshape(h, w).astype(np.int32)
+                .reshape(hp, w).astype(np.int32)
             tile_sm = tile_init[1:n_constrained].cpu().numpy()
             for pl_i in range(1, n_constrained):
                 key = (tile_sm[pl_i - 1].astype(np.int64).ravel()
@@ -362,8 +429,8 @@ class DenseSegmentation:
                        + compact[pl_i].ravel() + 1)
                 uniq, first = np.unique(key, return_index=True)
                 canon = first[np.searchsorted(uniq, key)]
-                init_sm[pl_i] = (pl_i * h * w
-                                 + canon).reshape(h, w).astype(np.int32)
+                init_sm[pl_i] = (pl_i * hp * w
+                                 + canon).reshape(hp, w).astype(np.int32)
             init_label = torch.cat([torch.as_tensor(init_sm, device=dev),
                                     tile_init[n_constrained:]])
             if tile_fin is not None:
@@ -373,14 +440,22 @@ class DenseSegmentation:
                                        ov.NUM_BUCKETS)
 
         # Live-seed count -> 16384-quantized table size (the table caps
-        # are semantics: they decide sink overflow and recompaction).
+        # are semantics: they decide sink overflow and recompaction); per
+        # band, the largest band's count.
         q = 16384
         flat = init_label.reshape(-1)
-        n_seeds = int((flat == torch.arange(flat.shape[0],
-                                            device=dev)).sum())
-        slots = ((n_seeds + 1024 + q - 1) // q) * q
-        params = self._params._replace(
-            table_slots=min(slots, t_solve * h * w))
+        is_root = flat == torch.arange(flat.shape[0], device=dev)
+        if self._bands > 1:
+            bh = hp // self._bands
+            n_seeds = int(is_root.reshape(t_solve, self._bands, bh, w)
+                          .sum(dim=(0, 2, 3)).max())
+            cap_b = ((n_seeds + 1024 + q - 1) // q) * q
+            params = self._params._replace(
+                band_table_slots=min(cap_b, t_solve * bh * w))
+        else:
+            slots = ((int(is_root.sum()) + 1024 + q - 1) // q) * q
+            params = self._params._replace(
+                table_slots=min(slots, t_solve * hp * w))
 
         head_planes = (1 + self.constraint_frames if self._overlap_gids
                        else 0)
@@ -411,9 +486,11 @@ class DenseSegmentation:
             # Slot-rank compaction (the JAX package's u16 transport path):
             # compact ids follow slot order, which decides new global ids.
             lut = res.lut.cpu().numpy()
-            slotvol = _finalize_labels(res.label16, n4)[:t].cpu().numpy()
+            slotvol = _finalize_labels(res.label16, self.frame_height,
+                                       n4)[:t].cpu().numpy()
         else:
-            labels = _finalize_labels(res.label, n4)[:t].cpu().numpy()
+            labels = _finalize_labels(res.label, self.frame_height,
+                                      n4)[:t].cpu().numpy()
         res = ov.OversegResult(label=None, constr=res.constr.cpu().numpy(),
                                size=res.size.cpu().numpy(),
                                orig=res.orig.cpu().numpy())

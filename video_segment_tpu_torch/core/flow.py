@@ -290,11 +290,41 @@ class FlowField:
             return self._batch.f16(self._idx)
         return self.numpy()
 
+    @property
+    def shape(self):
+        src = self._host if self._host is not None else self._dev
+        return tuple(src.shape)
+
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()
         if dtype is not None and a.dtype != np.dtype(dtype):
             return a.astype(dtype)
         return a.copy() if copy else a
+
+
+def as_flow_host(flow, prefer_f16: bool = True) -> np.ndarray | None:
+    """Host array view of a flow argument (FlowField or ndarray or None)."""
+    if flow is None:
+        return None
+    if isinstance(flow, FlowField):
+        return flow.numpy_f16() if prefer_f16 else flow.numpy()
+    return np.asarray(flow)
+
+
+def flow_to_hsv_bgr(flow) -> np.ndarray:
+    """Render a flow field as a BGR image: hue from flow angle, saturation
+    and value from magnitude (flow_reader.cpp:306-330 formula exactly:
+    H=(atan2(y,x)/pi+1)*90, S=V=min(|f|*20, 255))."""
+    import cv2
+
+    flow = as_flow_host(flow)
+    x, y = flow[..., 0], flow[..., 1]
+    hsv = np.empty((*x.shape, 3), np.uint8)
+    hsv[..., 0] = ((np.arctan2(y, x) / np.pi + 1.0) * 90.0).astype(np.uint8)
+    mag = np.minimum(np.hypot(x, y) * 20.0, 255.0).astype(np.uint8)
+    hsv[..., 1] = mag
+    hsv[..., 2] = mag
+    return cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)
 
 
 class FlowPair(NamedTuple):

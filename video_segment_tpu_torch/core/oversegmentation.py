@@ -6,18 +6,20 @@ docstring for the semantics): ascending bucket-threshold schedule levels,
 Boruvka merge rounds to a fixed point over an O(regions) edge table, the
 mean-colour gate with the force-merge shortcut, level-end finalization /
 unconstraining, min-region-size forcing and the final constraint
-association.  Scope: the edge-table solver (`bands=1`, spatial +
-temporal directions, the temporal ones displaced along backward optical
-flow when a flow volume is given), with the supertile-gated early levels
+association.  Scope: the edge-table solver (spatial + temporal
+directions, the temporal ones displaced along backward optical flow when a
+flow volume is given), monolithic or split into row bands (`bands>1`: the
+pixel phases run one band at a time, a boundary pass restores the
+adjacency across the seams, the table phases run on the glued global
+table), with the supertile-gated early levels
 (`st_levels>0`) either as K3 launches (`ops/tile_table`, the default) or
 as masked global rounds (`st_kernel=False`).  The two admit the same
 merges; they differ only in the float order of the region statistics, in
 seeds beyond `st_slots` (unmerged in K3) and in a table recompaction that
 falls inside the gated levels (the masked rounds then see the shrunk
-table's top-K edges).  Banded solves, two-stage solves, the gradient
-trait and non-default descriptors raise
-NotImplementedError; the v1 pixel solver (`edge_table=False`) is not
-ported.
+table's top-K edges).  Two-stage solves, the gradient trait and
+non-default descriptors raise NotImplementedError; the v1 pixel solver
+(`edge_table=False`) is not ported.
 
 JAX's segment reductions become `scatter_reduce_` / `index_add_` into
 tensors pre-filled with the same empty-segment identities (INT32_MAX /
@@ -48,7 +50,8 @@ TEMPORAL_DIRS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 MODE_MERGE = 0
 MODE_MIN_SIZE = 1
 
-_ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
+_ROADMAP = ("not ported yet (ROADMAP.md, Queue 1: the knobs that are "
+            "off by default)")
 
 
 class OversegParams(NamedTuple):
@@ -375,9 +378,13 @@ def _pack_spec(nseg: int):
 
 
 def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
-                   orig_slot=None, head_planes: int = 0, flow=None):
+                   orig_slot=None, head_planes: int = 0, flow=None,
+                   global_base: int = 0, pack_domain: int | None = None):
     """One-time region-adjacency extraction (see the JAX docstring);
     `flow` displaces the temporal directions (`_fold_dirs_raw`).
+    `global_base` offsets the packed partner ids and `pack_domain` sizes
+    the key layout: a band of a banded solve extracts with band-local own
+    slots but partners addressed in, and packed for, the global table.
 
     Returns packed (2*n_dirs, nseg) int32, I32MAX where absent: forward
     per-(slot, direction) minima in rows [0, n_dirs), the reverse view
@@ -390,7 +397,8 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
     """
     t, h, w, _ = vol.shape
     dev = vol.device
-    bits, bshift = _pack_spec(nseg)
+    bits, bshift = _pack_spec(pack_domain if pack_domain is not None
+                              else nseg)
     pmask = (1 << bits) - 1
     memb_flat = memb3.reshape(-1)
     n_dirs = len(SPATIAL_FWD) + (len(TEMPORAL_DIRS) if t > 1 else 0)
@@ -402,7 +410,8 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
         ok = (d.valid & (d.nb_label != memb3) & (memb3 != sink)
               & (d.nb_label != sink))
         bkt = torch.clamp(d.bucket, max=NUM_BUCKETS - 2) >> bshift
-        return torch.where(ok, (bkt << bits) | d.nb_label, I32MAX)
+        return torch.where(ok, (bkt << bits) | (d.nb_label + global_base),
+                           I32MAX)
 
     tab = torch.full((d_cols, nseg), I32MAX, dtype=torch.int32, device=dev)
     if tile_path:
@@ -454,8 +463,8 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
     # always in range).
     fwd = tab[:n_dirs]
     valid = fwd < I32MAX
-    ploc = torch.clamp(fwd & pmask, 0, nseg - 1)
-    own_g = _arange(nseg, vol)[None]
+    ploc = torch.clamp((fwd & pmask) - global_base, 0, nseg - 1)
+    own_g = _arange(nseg, vol)[None] + global_base
     rev_val = torch.where(valid, ((fwd >> bits) << bits) | own_g, I32MAX)
     kidx = _arange(n_dirs, vol)[:, None].long()
     rev = seg_min(rev_val.reshape(-1), (kidx * nseg + ploc).reshape(-1),
@@ -708,6 +717,10 @@ def _solve_edge_table(vol, init_label, constr_init, frozen_init,
                       head_planes: int = 0, flow=None):
     """Edge-table phases: table init, edge extraction, table solve."""
     t, h, w, _ = vol.shape
+    if params.bands > 1:
+        return _solve_banded(vol, flow, init_label, constr_init, frozen_init,
+                             fin_init, params, thetas, level_rounds,
+                             has_constraints, cell_stats, head_planes)
     r_cap = _table_cap(params, n_pix, h, w, has_constraints)
     nseg = r_cap + 1
     ts, memb, orig_slot = _init_table(vol, init_label, constr_init,
@@ -1075,15 +1088,197 @@ def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
         diag=diag)
 
 
+# ---------------------------------------------------------------------------
+# Banded solve: row bands in the pixel phases, one global table.
+
+
+def _boundary_edges(vol, memb_g, B: int, bh: int, G: int,
+                    params: OversegParams, include_temporal: bool):
+    """Cross-band adjacency: per-slot min edges across the B-1 band seams.
+
+    Returns a (D_bd, G+1) packed table in the `_extract_edges` layout.
+    Crossing directions: spatial (dy=1, dx in {-1,0,1}) between the last
+    row of band b and the first row of band b+1, plus -- when flow is
+    absent and t>1 -- undisplaced temporal (dt=-1, dy=+-1, dx in
+    {-1,0,1}).  Flow-displaced temporal edges stay clamped within their
+    band (a one-row approximation at each seam)."""
+    t, h, w, nf = vol.shape
+    nseg_g = G + 1
+    bits, bshift = _pack_spec(nseg_g)
+    volr = vol.reshape(t, B, bh, w, nf)
+    membr = memb_g.reshape(t, B, bh, w)
+    lo_c = volr[:, :-1, -1]      # (t, B-1, w, 3): last row of band b
+    hi_c = volr[:, 1:, 0]        # first row of band b+1
+    lo_m = membr[:, :-1, -1]     # (t, B-1, w)
+    hi_m = membr[:, 1:, 0]
+    xs = torch.arange(w, device=vol.device)[None, None, :]
+
+    def one(a_c, a_m, b_c, b_m, dx):
+        if dx:
+            # The roll wraps; `valid` removes the wrapped column.
+            b_c = torch.roll(b_c, -dx, dims=2)
+            b_m = torch.roll(b_m, -dx, dims=2)
+        valid = (xs + dx >= 0) & (xs + dx < w)
+        bkt = torch.clamp(_bucketize(_dist(a_c, b_c, params.metric)),
+                          max=NUM_BUCKETS - 2) >> bshift
+        ok = valid & (a_m != G) & (b_m != G) & (a_m != b_m)
+        pk_a = torch.where(ok, (bkt << bits) | b_m, I32MAX).reshape(-1)
+        pk_b = torch.where(ok, (bkt << bits) | a_m, I32MAX).reshape(-1)
+        return [seg_min(pk_a, a_m.reshape(-1), nseg_g),
+                seg_min(pk_b, b_m.reshape(-1), nseg_g)]
+
+    cols = []
+    for dx in (-1, 0, 1):
+        cols += one(lo_c, lo_m, hi_c, hi_m, dx)
+    if include_temporal and t > 1:
+        for dx in (-1, 0, 1):
+            # (t, lo row) -> (t-1, hi row): down-backward
+            cols += one(lo_c[1:], lo_m[1:], hi_c[:-1], hi_m[:-1], dx)
+            # (t, hi row) -> (t-1, lo row): up-backward
+            cols += one(hi_c[1:], hi_m[1:], lo_c[:-1], lo_m[:-1], dx)
+    return torch.stack(cols, dim=0)
+
+
+def _banded_dims(t: int, h: int, w: int, params: OversegParams):
+    """Band-decomposition geometry: (B, bh, cap_b, nseg_b, G, nseg_g)."""
+    B = params.bands
+    if h % B or (h // B) % 8:
+        raise ValueError(f"height {h} not divisible into {B} bands of "
+                         f"8-row-aligned height")
+    bh = h // B
+    n_band = t * bh * w
+    cap_b = params.band_table_slots or min(
+        max(n_band // params.table_divisor, 1 << 14), n_band)
+    nseg_b = cap_b + 1
+    G = B * cap_b
+    nseg_g = G + 1
+    _pack_spec(nseg_g)  # validate packability
+    return B, bh, cap_b, nseg_b, G, nseg_g
+
+
+def _banded_split_inputs(vol, flow, init_label, constr_init, frozen_init,
+                         fin_init, params: OversegParams, cell_stats=None):
+    """Band-split every per-pixel solver input: (tt,h,w[,C]) ->
+    (B,tt,bh,w[,C]) views, with init labels localized to band-local voxel
+    ids.  Returns (vol_b, flow_b or None, init_local, constr_b, frozen_b,
+    fin_b, cells_b or None)."""
+    t, h, w, nf = vol.shape
+    B, bh, _, _, _, _ = _banded_dims(t, h, w, params)
+
+    def band_split(x, ch=0):
+        tt = x.shape[0]
+        shape = (tt, B, bh, w) + ((ch,) if ch else ())
+        perm = (1, 0, 2, 3, 4) if ch else (1, 0, 2, 3)
+        return x.reshape(shape).permute(perm)
+
+    init_bs = band_split(init_label.reshape(t, h, w))
+    # Localize init values (global voxel ids, in-band by construction) to
+    # band-local voxel ids.
+    band_of = _arange(B, vol)[:, None, None, None]
+    init_local = (init_bs // (h * w)) * (bh * w) \
+        + (init_bs % (h * w) - band_of * (bh * w))
+    cells_b = (tuple(band_split(x.reshape(t, h, w)) for x in cell_stats)
+               if cell_stats is not None else None)
+    return (band_split(vol, nf),
+            band_split(flow, 2) if flow is not None else None,
+            init_local, band_split(constr_init.reshape(t, h, w)),
+            band_split(frozen_init.reshape(t, h, w)),
+            band_split(fin_init.reshape(t, h, w)), cells_b)
+
+
+def _make_band_fn(t: int, h: int, w: int, params: OversegParams,
+                  has_constraints: bool, head_planes: int):
+    """Per-band pixel phase (seed compaction + edge extraction) of the
+    banded solver: band b's inputs -> (table state, membership, packed
+    edge table with global partner ids, original roots in the global voxel
+    numbering)."""
+    B, bh, cap_b, nseg_b, G, nseg_g = _banded_dims(t, h, w, params)
+
+    def band_fn(b, vb, flb, il, cb, fb, finb, cls):
+        vb = vb.contiguous()
+        il = il.reshape(-1)
+        cls_flat = (tuple(x.reshape(-1) for x in cls) if cls is not None
+                    else None)
+        ts_b, memb_b, orig_b = _init_table(
+            vb, il, cb.reshape(-1), fb.reshape(-1), finb.reshape(-1), cap_b,
+            has_constraints, cls_flat, head_planes)
+        tab_b = _extract_edges(
+            memb_b.reshape(t, bh, w), vb, nseg_b, cap_b, params,
+            init_label=il, orig_slot=orig_b, head_planes=head_planes,
+            flow=None if flb is None else flb.contiguous(),
+            global_base=b * cap_b, pack_domain=nseg_g)
+        # Delocalize original-root voxel ids.
+        orig_g = (orig_b // (bh * w)) * (h * w) + b * (bh * w) \
+            + orig_b % (bh * w)
+        return ts_b, memb_b, tab_b, orig_g
+
+    return band_fn
+
+
+def _solve_banded(vol, flow, init_label, constr_init, frozen_init, fin_init,
+                  params: OversegParams, thetas, level_rounds,
+                  has_constraints, cell_stats=None, head_planes: int = 0):
+    """Row-banded pixel phases + global table phases (OversegParams.bands).
+
+    Each band runs seed compaction and edge extraction on its own, one
+    band after another so that a single band's key planes are resident at
+    a time (`bands_vmap` asks the JAX package to map them at once for its
+    mesh; the result is the same and this port keeps the loop), with its
+    table slots mapped into a disjoint global range; a boundary pass
+    restores cross-band adjacency; the schedule, min-size and constraint
+    phases then run on the glued global table exactly as in the monolithic
+    solve."""
+    t, h, w, _ = vol.shape
+    B, bh, cap_b, nseg_b, G, nseg_g = _banded_dims(t, h, w, params)
+    dev = vol.device
+    band_fn = _make_band_fn(t, h, w, params, has_constraints, head_planes)
+    split = _banded_split_inputs(vol, flow, init_label, constr_init,
+                                 frozen_init, fin_init, params, cell_stats)
+    states, membs, tabs, origs = [], [], [], []
+    for b in range(B):
+        args = [None if x is None
+                else (tuple(c[b] for c in x) if isinstance(x, tuple)
+                      else x[b]) for x in split]
+        ts_b, memb_b, tab_b, orig_g = band_fn(b, *args)
+        states.append(ts_b)
+        membs.append(torch.where(memb_b == cap_b, G, memb_b + b * cap_b))
+        tabs.append(tab_b[:, :cap_b])
+        origs.append(orig_g)
+
+    def glue(rows, sink_val):
+        """Per-band (nseg_b, ...) tables -> (G+1, ...) global."""
+        sink_row = torch.full((1,) + tuple(rows[0].shape[1:]), sink_val,
+                              dtype=rows[0].dtype, device=dev)
+        return torch.cat([r[:cap_b] for r in rows] + [sink_row])
+
+    ts = SolverState(
+        label=_arange(nseg_g, vol),
+        csum=glue([s.csum for s in states], 0.0),
+        size=glue([s.size for s in states], 0.0),
+        constr=glue([s.constr for s in states], -1),
+        fin=glue([s.fin for s in states], 0),
+        frozen=glue([s.frozen for s in states], False))
+    orig_slot = glue(origs, 0)
+    memb_g = torch.stack(membs).reshape(B, t, bh, w).permute(1, 0, 2, 3) \
+        .reshape(-1)
+    d_band = tabs[0].shape[0]
+    tab_g = torch.cat(tabs + [torch.full((d_band, 1), I32MAX,
+                                         dtype=torch.int32, device=dev)],
+                      dim=1)
+    tab_bd = _boundary_edges(vol, memb_g.reshape(t, h, w), B, bh, G, params,
+                             include_temporal=flow is None)
+    tab = torch.cat([tab_g, tab_bd], dim=0)
+    return _finish_table_solve(ts, tab, memb_g, orig_slot, init_label,
+                               (t, h, w), params, thetas, level_rounds,
+                               has_constraints)
+
+
 def _check_scope(params: OversegParams) -> None:
     """Raise for the solver configurations this port does not cover."""
     if not params.edge_table:
         raise NotImplementedError(
             "the v1 pixel solver (edge_table=False) is not ported "
-            "(ROADMAP.md, Queue 1 item 13)")
-    if params.bands > 1:
-        raise NotImplementedError(f"banded solve (bands>1): {_ROADMAP} "
-                                  "item 8")
+            "(ROADMAP.md, Queue 1: deliberately left out)")
     if params.st_levels > 0:
         # Packed K3 keys hold 12 partner bits; the slot grid is 128 wide.
         if not (0 < params.st_slots <= 4096 and params.st_slots % 128 == 0):
@@ -1096,12 +1291,12 @@ def _check_scope(params: OversegParams) -> None:
                              f"level of the {len(params.schedule)}-level "
                              "schedule")
     if params.two_stage:
-        raise NotImplementedError(f"two_stage: {_ROADMAP} item 11")
+        raise NotImplementedError(f"two_stage: {_ROADMAP}")
     if params.gradient_trait:
-        raise NotImplementedError(f"gradient_trait: {_ROADMAP} item 11")
+        raise NotImplementedError(f"gradient_trait: {_ROADMAP}")
     if params.descriptor != "color_mean":
         raise NotImplementedError(f"descriptor {params.descriptor!r}: "
-                                  f"{_ROADMAP} item 11")
+                                  f"{_ROADMAP}")
 
 
 def oversegment(vol, flow=None, constraints=None, init_label=None,

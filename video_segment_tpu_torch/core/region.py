@@ -186,11 +186,12 @@ class RegionSegmentation:
                  frame_height: int, *, device: str | torch.device = "cuda"):
         if options.appearance_window_size > 0:
             raise NotImplementedError("windowed appearance histograms are "
-                                      "not ported yet (ROADMAP.md, Queue 1 "
-                                      "item 11)")
+                                      "not ported yet (ROADMAP.md, Queue 1: "
+                                      "the knobs that are off by default)")
         if options.save_descriptors:
             raise NotImplementedError("save_descriptors is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 11)")
+                                      "(ROADMAP.md, Queue 1: the knobs that "
+                                      "are off by default)")
         self.options = options
         self.device = devmod.resolve(device)
         self.frame_width = frame_width

@@ -5,11 +5,11 @@ Port of video_segment_tpu/ops/filters.py (same parity targets):
 - Bilateral: circular window of radius floor(1.5*sigma_space), replicate
   border, spatial weight exp(-0.5*r^2/ss^2), joint color weight
   exp(-0.5*||dc||^2/sc^2) shared by all channels (defaults 3.0 / 0.25).
-Sums run in the JAX version's left-to-right order.  The Gaussian's
-multiply-adds round as XLA's CPU backend contracts them (fused
-multiply-adds), so it equals the JAX version bit for bit; the bilateral
-filter's exp is torch's, not XLA's own polynomial, and stays within a few
-float32 ulps of it.
+Sums run in the JAX version's left-to-right order, and multiply-adds round
+as XLA's CPU backend contracts them (fused multiply-adds, emulated in
+float64); the bilateral filter's exp is XLA's own polynomial
+(`ops/histograms.xla_exp`).  Both filters equal the JAX versions bit for
+bit on the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from video_segment_tpu_torch.ops.histograms import _fma, xla_exp
 
 
 def _gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
@@ -26,22 +28,15 @@ def _gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return (w / w.sum()).astype(np.float32)
 
 
-def _fma(a: float, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * x + c rounded once to float32, as a fused multiply-add: the
-    float32 product is exact in float64, and the float64 sum is rounded
-    once to float32."""
-    return (a * x.double() + c.double()).float()
-
-
 def _taps(k: list, tap) -> torch.Tensor:
     """sum_i k[i] * tap(i) in the JAX package's compiled rounding: XLA's
     CPU backend contracts the first two products' sum into
     fma(k0, t0, k1 * t1) and each later term into fma(k_i, t_i, sum)."""
     if len(k) == 1:
         return k[0] * tap(0)
-    out = _fma(k[0], tap(0), k[1] * tap(1))
+    out = _fma(tap(0), k[0], k[1] * tap(1))
     for i in range(2, len(k)):
-        out = _fma(k[i], tap(i), out)
+        out = _fma(tap(i), k[i], out)
     return out
 
 
@@ -69,31 +64,52 @@ def _circular_offsets(radius: int) -> list[tuple[int, int, float]]:
     return offs
 
 
+_TAP_BLOCK = 7   # taps whose weights are computed in one batch of launches
+
+
 def bilateral_filter(img: torch.Tensor, sigma_space: float = 3.0,
                      sigma_color: float = 0.25) -> torch.Tensor:
-    """Bilateral filter of an (H,W,C) float image (full circular window)."""
+    """Bilateral filter of an (H,W,C) float image (full circular window),
+    in the rounding of the JAX package's compiled filter: the squared
+    colour distance as fma(d2, d2, fma(d0, d0, d1 * d1)) over the channel
+    differences, the weight sum as plain adds in tap order, each channel's
+    value sum as fma(w0, n0, w1 * n1) and then one fused multiply-add a
+    tap.  The weights of `_TAP_BLOCK` taps are computed at once (the same
+    arithmetic per element, a seventh of the launches); the two sums run
+    tap by tap, because each step rounds."""
     radius = int(sigma_space * 1.5)
     offs = _circular_offsets(radius)
     h, w, _ = img.shape
-    ch = [img[:, :, c] for c in range(3)]
-    pads = [F.pad(c[None, None], (radius,) * 4, mode="replicate")[0, 0]
-            for c in ch]
+    chw = img.permute(2, 0, 1)
+    pad = F.pad(chw[None], (radius,) * 4, mode="replicate")[0]
 
     space_coeff = -0.5 / (sigma_space * sigma_space)
     color_coeff = -0.5 / (sigma_color * sigma_color)
 
-    wsum = torch.zeros((h, w), dtype=img.dtype, device=img.device)
-    vsum = [torch.zeros_like(wsum) for _ in range(3)]
-    for dy, dx, r2 in offs:
-        y0, x0 = dy + radius, dx + radius
-        nb = [p[y0:y0 + h, x0:x0 + w] for p in pads]
-        d2 = sum((c - n) * (c - n) for c, n in zip(ch, nb))
-        ws = float(np.exp(space_coeff * r2).astype(np.float32))
-        wt = ws * torch.exp(color_coeff * d2)
-        wsum = wsum + wt
-        vsum = [v + wt * n for v, n in zip(vsum, nb)]
+    ws_all = torch.tensor(
+        [np.exp(space_coeff * r2).astype(np.float32) for *_, r2 in offs],
+        dtype=torch.float32, device=img.device)[:, None, None]
+    wsum = vsum = first = None
+    for b0 in range(0, len(offs), _TAP_BLOCK):
+        block = offs[b0:b0 + _TAP_BLOCK]
+        nbs = torch.stack([pad[:, dy + radius:dy + radius + h,
+                               dx + radius:dx + radius + w]
+                           for dy, dx, _ in block])          # (B,3,H,W)
+        s = chw[None] - nbs
+        d2 = _fma(s[:, 2], s[:, 2], _fma(s[:, 0], s[:, 0],
+                                         s[:, 1] * s[:, 1]))
+        wts = xla_exp(d2 * color_coeff) * ws_all[b0:b0 + _TAP_BLOCK]
+        for wt, nb in zip(wts, nbs):
+            if wsum is None:
+                wsum, first = wt, (wt, nb)
+            elif vsum is None:
+                wsum = wsum + wt
+                vsum = _fma(first[0], first[1], wt * nb)
+            else:
+                wsum = wsum + wt
+                vsum = _fma(wt, nb, vsum)
     den = torch.clamp(wsum, min=1e-20)
-    return torch.stack([v / den for v in vsum], dim=-1)
+    return (vsum / den).permute(1, 2, 0).contiguous()
 
 
 def presmooth(img: torch.Tensor, mode: str = "bilateral") -> torch.Tensor:

@@ -217,6 +217,38 @@ def xla_log2(x: torch.Tensor) -> torch.Tensor:
     return xla_log(x) * _INV_LN2
 
 
+# XLA's CPU `exp_f32` (Cephes-style: range reduction by a two-part ln 2, a
+# degree-5 polynomial), constants as the compiled code holds them.
+_EXP_LO = _hex("-0x1.5f3334p+6")      # -87.8: inputs clamp to [LO, HI]
+_EXP_HI = _hex("0x1.633334p+6")       # 88.8
+_EXP_LOG2E = _hex("0x1.715476p+0")
+_EXP_C1 = _hex("0x1.63p-1")           # high part of ln 2 (0.693359375)
+_EXP_C2 = _hex("-0x1.bd0106p-13")     # low part of ln 2
+_EXP_P = tuple(map(_hex, ("0x1.a0d2cep-13", "0x1.6e879cp-10",
+                          "0x1.11121p-7", "0x1.555382p-5",
+                          "0x1.555554p-3", "0x1p-1")))
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp, bit for bit as the JAX package's compiled (XLA CPU)
+    code computes it: n = floor(x * log2(e) + 1/2) clamped to [-127, 127],
+    r = x - n * ln 2 in two parts, a degree-5 Horner polynomial in r, then
+    1 + r + r^2 * p(r) scaled by 2^n through the exponent bits.  Every
+    multiply-add the object code of `jit(exp)` holds as a fused one is
+    emulated by `_fma`; results below the smallest normal flush to zero as
+    the compiled code runs (flush-to-zero mode)."""
+    x = torch.clamp(x.float(), _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(_fma(x, _EXP_LOG2E, 0.5)), -127.0, 127.0)
+    r = _fma(n, -_EXP_C1, x)
+    r = _fma(n, -_EXP_C2, r)
+    y = torch.full_like(r, _EXP_P[0])
+    for p in _EXP_P[1:]:
+        y = _fma(y, r, p)
+    y = _fma(y, r * r, r) + 1.0
+    out = y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
+
+
 def combined_distance(color_d, flow_d, size_a, size_b, inv_median_size,
                       penalizer: float = 0.25, use_flow: bool = True):
     """SquaredORDistanceSizePenalized over [appearance, flow] + penalizer,
