@@ -47,8 +47,30 @@ Phases (each prints one line; any failure exits non-zero):
     seconds of both;
 18. checkpoint kill-and-resume on the card over the 272x480 clip (dense and
     region stage, flow off), bitwise against the straight run;
-19. no module of the JAX package (video_segment_tpu) and no jax was
+19. tools/seg_tree on the card, 272x480, flow on (its defaults): the
+    41-frame clip written to an MJPG .avi, then seg_tree.main with
+    --use_pipeline and with --no-use_pipeline: 41 frames in the .pb, every
+    pixel labelled, a hierarchy on each set start, every stage on the card,
+    exact launch counts (K1 41, K2 3) in both modes; fps of both, the flow
+    stage's seconds and ms per pair through push/flush; then both modes
+    again under deterministic algorithms: the two .pb files equal;
+20. the same at 480x854 (2 bands), both modes: K1 41, K2 6;
+21. seg_tree --no-flow against segment_frames(use_flow=False) over the
+    same decoded frames (level-0 boundary F), and once with --solver_param
+    st_levels=3 --solver_param preseg_pair_merge=1 (K3 launches);
+22. kill and resume through the CLI on the card, flow read from the .flow
+    cache, bitwise against the straight cached run;
+23. the offline tools on the .pb just written: converter --mode bitmap_ids
+    round-trips frame 0's id image, renderer and viewer --dump write files;
+24. the fused batch: BatchDenseSegmentation over two different 41-frame
+    clips, flow off, async tails, each clip equal to its standalone run
+    with the synchronous tail (K1 82, K2 6);
+    seconds and fps of batch_segment --fused, sequential and
+    --concurrent 2;
+25. no module of the JAX package (video_segment_tpu) and no jax was
     imported.
+Phases 19-23 decode with cv2 and write with protobuf; where either is
+missing one line names it and the phases left out.
 Then a JSON line of per-kernel results (time, launches on the main path,
 bound, plain and library times), the card's name and power limit from
 nvidia-smi, and the final {"ok": true, ...} line.
@@ -56,10 +78,16 @@ nvidia-smi, and the final {"ok": true, ...} line.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -382,6 +410,480 @@ def quantized_tables(rng, n, sr, k):
                            shape)
     return dict(labr=labr, labc=labc, size=size, c0=cols[0], c1=cols[1],
                 c2=cols[2], fin=fin, blocked=blocked, edges=edges)
+
+
+def write_avi(path: str, frames, fps: float = 25.0) -> str:
+    """BGR uint8 frames -> an MJPG .avi (lossy: compare decoded frames)."""
+    import cv2
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps, (w, h))
+    for fr in frames:
+        vw.write(fr)
+    vw.release()
+    return path
+
+
+@contextlib.contextmanager
+def recorded_stages():
+    """Every stage object the port's entry points build inside the block,
+    by kind, so that a CLI run can be asked where its stages ran and how
+    long they took.  The flow engine also times its micro-batches (the
+    stages share one stream, so in pipeline mode a batch's seconds include
+    waits for the other stages' queued work), and `made["emit"]` holds the
+    seconds of every `emit.segframe_to_bytes` call (the .pb encoder with
+    its boundary vectorization, host work of the consuming thread)."""
+    from video_segment_tpu_torch import device as devmod
+    from video_segment_tpu_torch.core import batch, dense, flow, region
+    from video_segment_tpu_torch.dataio import emit
+    made = {"dense": [], "region": [], "flow": [], "batch": [], "emit": []}
+
+    def recording(cls, kind):
+        class Recorded(cls):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                made[kind].append(self)
+        return Recorded
+
+    class TimedFlow(recording(flow.FlowEngine, "flow")):
+        drain_seconds = 0.0   # inside the micro-batches, synchronized
+        push_seconds = 0.0    # every push and flush call, drains included
+        pairs = 0
+        batches = 0
+
+        def push(self, frame, idx):
+            t0 = time.monotonic()
+            out = super().push(frame, idx)
+            self.push_seconds += time.monotonic() - t0
+            return out
+
+        def flush(self):
+            t0 = time.monotonic()
+            out = super().flush()
+            self.push_seconds += time.monotonic() - t0
+            return out
+
+        def _drain(self):
+            n = len(self._pending)
+            t0 = time.monotonic()
+            out = super()._drain()
+            devmod.synchronize(self.device)
+            if n:
+                self.drain_seconds += time.monotonic() - t0
+                self.pairs += n
+                self.batches += 1
+            return out
+
+    saved = (dense.DenseSegmentation, region.RegionSegmentation,
+             flow.FlowEngine, batch.BatchDenseSegmentation,
+             emit.segframe_to_bytes)
+
+    def timed_emit(*args, **kw):
+        t0 = time.monotonic()
+        out = saved[4](*args, **kw)
+        made["emit"].append(time.monotonic() - t0)
+        return out
+
+    dense.DenseSegmentation = recording(saved[0], "dense")
+    region.RegionSegmentation = recording(saved[1], "region")
+    flow.FlowEngine = TimedFlow
+    batch.BatchDenseSegmentation = recording(saved[3], "batch")
+    emit.segframe_to_bytes = timed_emit
+    try:
+        yield made
+    finally:
+        (dense.DenseSegmentation, region.RegionSegmentation,
+         flow.FlowEngine, batch.BatchDenseSegmentation,
+         emit.segframe_to_bytes) = saved
+
+
+def kernel_wrappers() -> tuple:
+    """The four kernel wrappers, in the order K1, K2, K4, K3."""
+    from video_segment_tpu_torch.ops import (tile_extract, tile_felz,
+                                             tile_preseg, tile_table)
+    return (tile_felz.tile_felzenszwalb, tile_extract.tile_reduce_min,
+            tile_preseg.tile_presegment, tile_table.tile_table_rounds)
+
+
+def launch_counts() -> tuple:
+    """(K1, K2, K4, K3) launch counters."""
+    return tuple(fn.launches for fn in kernel_wrappers())
+
+
+def run_cli(main_fn, argv, want_counts=None) -> dict:
+    """One CLI run on the card with the launch counters set to 0 just
+    before it and read just after: exit code 0, every stage it built on the
+    card, K1 and K2 launched (exactly `want_counts` = (K1, K2, K4, K3)
+    where given).  Returns its printed text, wall seconds, peak memory,
+    counts and stages."""
+    reset_launches(*kernel_wrappers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    t0 = time.monotonic()
+    with recorded_stages() as made, contextlib.redirect_stdout(text):
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit code {rc}\n{text.getvalue()}")
+    stages = [st for kind in ("dense", "region", "flow", "batch")
+              for st in made[kind]]
+    if not made["dense"] and not made["batch"]:
+        raise AssertionError(f"{argv}: no dense stage was built")
+    for st in stages:
+        if st.device.type != "cuda":
+            raise AssertionError(f"{argv}: {type(st).__name__} was built on "
+                                 f"{st.device}")
+    if counts[0] == 0 or counts[1] == 0:
+        raise AssertionError(f"{argv}: launches K1/K2/K4/K3 {counts}")
+    if want_counts is not None and counts != want_counts:
+        raise AssertionError(f"{argv}: launches K1/K2/K4/K3 {counts}, want "
+                             f"{want_counts}")
+    return dict(text=text.getvalue(), wall=wall, counts=counts, made=made,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def cli_fps(run: dict) -> tuple:
+    """(frames, seconds, fps) of seg_tree's own `Processed ...` line."""
+    m = re.search(r"Processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)",
+                  run["text"])
+    if m is None or "__SEGMENTATION_FINISHED__" not in run["text"]:
+        raise AssertionError(f"seg_tree did not finish:\n{run['text']}")
+    return int(m.group(1)), float(m.group(2)), float(m.group(3))
+
+
+def read_pb(path: str) -> tuple:
+    """(level-0 id images (T,H,W), frames that carry a hierarchy) of a .pb
+    stream, with the stream's own checks: every pixel labelled, and each
+    frame's hierarchy_frame_idx pointing at a frame that carries one."""
+    from video_segment_tpu_torch import proto
+    from video_segment_tpu_torch.dataio import seg_io
+    from video_segment_tpu_torch.segment_util import util
+    reader = seg_io.SegmentationReader(path)
+    if not reader.open_and_read_headers():
+        raise AssertionError(f"cannot open {path}")
+    imgs, with_hier, ptrs = [], [], []
+    for idx, payload in enumerate(reader):
+        desc = proto.SegmentationDesc()
+        desc.ParseFromString(payload)
+        if len(desc.hierarchy):
+            with_hier.append(idx)
+            if len(desc.hierarchy) < 2:
+                raise AssertionError(f"{path}: frame {idx} carries "
+                                     f"{len(desc.hierarchy)} levels")
+        ptrs.append(desc.hierarchy_frame_idx)
+        imgs.append(util.desc_to_id_image(desc))
+    reader.close()
+    imgs = np.stack(imgs)
+    if (imgs < 0).any():
+        raise AssertionError(f"{path}: unlabelled pixels")
+    if not with_hier or with_hier[0] != 0 or \
+            not set(ptrs) <= set(with_hier):
+        raise AssertionError(f"{path}: hierarchies at {with_hier}, frames "
+                             f"point at {sorted(set(ptrs))}")
+    return imgs, with_hier
+
+
+def seg_tree_summary(run: dict) -> str:
+    n, secs, fps = cli_fps(run)
+    msg = (f"{n} frames in {secs:.2f}s = {fps:.3f} fps by its own clock "
+           f"({run['wall']:.2f}s with set-up); peak device memory "
+           f"{run['peak'] / 2**20:.1f} MiB; launches K1/K2/K4/K3 "
+           f"{run['counts']}")
+    for ds in run["made"]["dense"]:
+        msg += (f"; dense stage seconds "
+                f"{ {k: round(v, 3) for k, v in ds.stage_seconds.items()} }")
+    for rs in run["made"]["region"]:
+        msg += (f"; region "
+                f"{ {k: round(v, 3) for k, v in rs.stage_seconds.items()} }")
+    for fe in run["made"]["flow"]:
+        if fe.pairs:
+            msg += (f"; flow stage {fe.push_seconds:.3f}s in push/flush, of "
+                    f"which {fe.drain_seconds:.3f}s in {fe.batches} "
+                    f"micro-batches for {fe.pairs} pairs = "
+                    f"{1e3 * fe.drain_seconds / fe.pairs:.2f} ms a pair")
+    msg += (f"; .pb encoding {sum(run['made']['emit']):.3f}s in "
+            f"{len(run['made']['emit'])} calls")
+    return msg
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Float atomics make a sum's last bit depend on the launch's schedule;
+    bitwise comparisons run both sides with deterministic kernels."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
+    """Phases 19-23: the command-line tools on the card, in `tmp`.
+    Returns the launch counts (K1, K2, K4, K3 of the supertile run) of
+    seg_tree's pipeline run at 272x480."""
+    from video_segment_tpu_torch import api, proto
+    from video_segment_tpu_torch.dataio import seg_io, video
+    from video_segment_tpu_torch.runtime import checkpoint
+    from video_segment_tpu_torch.segment_util import util
+    from video_segment_tpu_torch.tools import (converter, renderer, seg_tree,
+                                               viewer)
+    n = len(frames_p)
+    base = ["--write_to_file", "--keep_rasterization", "--max_rate", "0",
+            "--no-dynamic_rate"]
+
+    def staged(name, frames=None, cache=None, src=None):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        path = os.path.join(d, "clip.avi")
+        if src is not None:
+            with open(src, "rb") as fi, open(path, "wb") as fo:
+                fo.write(fi.read())
+        else:
+            write_avi(path, frames)
+        if cache is not None:
+            with open(cache, "rb") as fi, open(path + ".flow", "wb") as fo:
+                fo.write(fi.read())
+        return path
+
+    def seg(path, *flags, want=None):
+        return run_cli(seg_tree.main, ["--input_file", path, *base, *flags],
+                       want)
+
+    # -- 19. seg_tree, 272x480, flow on ------------------------------------
+    want = (n, n_solves, 0, 0)
+    master = staged("master", frames_p)
+    runs = {}
+    for mode in ("--use_pipeline", "--no-use_pipeline"):
+        path = staged("time" + mode, src=master)
+        runs[mode] = seg(path, mode, want=want)
+        imgs, hier_at = read_pb(path + ".pb")
+        if imgs.shape != (n, H, W):
+            raise AssertionError(f"seg_tree {mode}: .pb holds {imgs.shape}")
+        if cli_fps(runs[mode])[0] != n:
+            raise AssertionError(f"seg_tree {mode}: {runs[mode]['text']}")
+        for kind in ("dense", "region", "flow"):
+            if len(runs[mode]["made"][kind]) != 1:
+                raise AssertionError(f"seg_tree {mode}: {kind} stages "
+                                     f"{runs[mode]['made'][kind]}")
+        log("cli", f"seg_tree {mode} {W}x{H} flow on: "
+            f"{seg_tree_summary(runs[mode])}; hierarchies at frames "
+            f"{hier_at}; {len(np.unique(imgs[0]))} level-0 regions in "
+            f"frame 0")
+    det = {}
+    with deterministic():
+        for mode in ("--use_pipeline", "--no-use_pipeline"):
+            det[mode] = staged("det" + mode, src=master)
+            seg(det[mode], mode, want=want)
+    if file_bytes(det["--use_pipeline"] + ".pb") != \
+            file_bytes(det["--no-use_pipeline"] + ".pb"):
+        raise AssertionError("seg_tree: the pipeline's .pb differs from the "
+                             "plain loop's")
+    log("cli", "seg_tree under deterministic algorithms: --use_pipeline and "
+        "--no-use_pipeline wrote the same "
+        f"{os.path.getsize(det['--use_pipeline'] + '.pb')} bytes; launch "
+        f"counts exact in both ({want})")
+    cli_counts = list(runs["--use_pipeline"]["counts"])
+
+    # -- 20. seg_tree, 480x854, pipeline -----------------------------------
+    banded = staged("banded", frames_b)
+    for mode in ("--use_pipeline", "--no-use_pipeline"):
+        path = staged("banded" + mode, src=banded)
+        run = seg(path, mode, want=(n, 2 * n_solves, 0, 0))
+        imgs, hier_at = read_pb(path + ".pb")
+        if imgs.shape != (n, BH, BW):
+            raise AssertionError(f"seg_tree banded: .pb holds {imgs.shape}")
+        del imgs
+        ds = run["made"]["dense"][0]
+        if (ds._bands, ds._pad_rows) != (2, 10):
+            raise AssertionError(f"seg_tree banded: bands {ds._bands}, pad "
+                                 f"rows {ds._pad_rows}")
+        log("cli", f"seg_tree {mode} {BW}x{BH} flow on, 2 bands: "
+            f"{seg_tree_summary(run)}; hierarchies at frames {hier_at}")
+
+    # -- 21. seg_tree --no-flow against the API ------------------------------
+    path = staged("noflow", src=master)
+    run = seg(path, "--no-flow", want=want)
+    cli_l0, _ = read_pb(path + ".pb")
+    reader = video.VideoReader(path)
+    decoded = list(reader)
+    reader.close()
+    stream = api.segment_frames(iter(decoded), W, H, use_flow=False,
+                                device="cuda")
+    api_l0 = rasterize(list(stream))
+    fm = boundary_f(cli_l0, api_l0)
+    log("cli", f"seg_tree --no-flow: {seg_tree_summary(run)}; level 0 "
+        f"against segment_frames(use_flow=False) over the same decoded "
+        f"frames: boundary F {fm:.4f} (regions {len(np.unique(cli_l0))} vs "
+        f"{len(np.unique(api_l0))})")
+    if fm < 0.9:
+        raise AssertionError(f"seg_tree --no-flow vs the API: boundary F "
+                             f"{fm:.4f} < 0.9")
+    path = staged("supertile", src=master)
+    run = seg(path, "--no-flow", "--solver_param", "st_levels=3",
+              "--solver_param", "preseg_pair_merge=1",
+              want=(n, n_solves, 0, n_st))
+    read_pb(path + ".pb")
+    cli_counts[3] = run["counts"][3]
+    log("cli", f"seg_tree --no-flow --solver_param st_levels=3 "
+        f"--solver_param preseg_pair_merge=1: {seg_tree_summary(run)}")
+
+    # -- 22. kill and resume through the CLI, flow from the cache ----------
+    t0 = time.monotonic()
+    ck = ["--no-use_pipeline", "--checkpoint_every", "1"]
+    # The cache comes from a run of its own: --save_flow downloads every
+    # field as exact float32, which the host consumers are then served in
+    # place of the batch's float16 copy, so a saving run's output is not a
+    # plain run's.
+    saver = staged("saver", src=master)
+    seg(saver, "--over_segment", "--save_flow", want=want)
+    cache = saver + ".flow"
+    with deterministic():
+        straight = staged("straight", src=master, cache=cache)
+        seg(straight, *ck, "--checkpoint_path",
+            os.path.join(tmp, "straight.ckpt"), want=want)
+        killed = staged("killed", src=master, cache=cache)
+        ckpt = os.path.join(tmp, "killed.ckpt")
+        seg(killed, *ck, "--checkpoint_path", ckpt, "--trim_to", "25")
+        offset = checkpoint.load_extra(ckpt)["writer_offset"]
+        resumed = seg(killed, *ck, "--checkpoint_path", ckpt, "--resume")
+    m = re.search(r"resumed from .* at frame (\d+)", resumed["text"])
+    if m is None or not 0 < int(m.group(1)) < n:
+        raise AssertionError(f"resume: {resumed['text']}")
+    if resumed["made"]["dense"][0]._buffer and \
+            resumed["made"]["dense"][0]._buffer[0].device.type != "cuda":
+        raise AssertionError("resume: buffer restored off the card")
+    want_pb = file_bytes(straight + ".pb")
+    if file_bytes(killed + ".pb") != want_pb:
+        raise AssertionError("seg_tree --resume: the appended .pb differs "
+                             "from the straight cached run's")
+    log("cli", f"kill and resume through seg_tree, flow from the .flow "
+        f"cache: stopped by --trim_to 25, resumed at frame {m.group(1)} "
+        f"(writer offset {offset}), appended .pb equals the straight cached "
+        f"run's {len(want_pb)} bytes ({time.monotonic() - t0:.1f}s)")
+
+    # -- 23. the offline tools ----------------------------------------------
+    import cv2
+    pb = straight + ".pb"
+    ids_dir = os.path.join(tmp, "ids")
+    if converter.main([f"--input={pb}", f"--output_dir={ids_dir}",
+                       "--mode=bitmap_ids"]) != 0:
+        raise AssertionError("converter failed")
+    img = cv2.imread(os.path.join(ids_dir, "frame0000.png"))
+    ids = (img[..., 0].astype(np.int64) | img[..., 1].astype(np.int64) << 8
+           | img[..., 2].astype(np.int64) << 16)
+    rd = seg_io.SegmentationReader(pb)
+    rd.open_and_read_headers()
+    desc = proto.SegmentationDesc()
+    desc.ParseFromString(rd.read_frame())
+    rd.close()
+    if not np.array_equal(ids, util.desc_to_id_image(desc)):
+        raise AssertionError("converter: frame 0's id bitmap does not "
+                             "round-trip")
+    rendered = os.path.join(tmp, "render.mp4")
+    sheet = os.path.join(tmp, "sheet.png")
+    if renderer.main([f"--input={pb}", f"--output_video={rendered}",
+                      "--render_level=0.4"]) != 0 or \
+            viewer.main([f"--input={pb}", f"--dump={sheet}"]) != 0:
+        raise AssertionError("renderer or viewer failed")
+    sizes = {os.path.basename(f): os.path.getsize(f)
+             for f in (rendered, sheet)}
+    if min(sizes.values()) == 0:
+        raise AssertionError(f"offline tools wrote an empty file: {sizes}")
+    log("tools", f"converter bitmap_ids round-trips frame 0 "
+        f"({len(np.unique(ids))} ids, {len(os.listdir(ids_dir))} PNGs); "
+        f"renderer and viewer --dump wrote {sizes} bytes")
+    return tuple(cli_counts)
+
+
+def signature(frames_out) -> list:
+    """Everything a run emitted, as comparable bytes."""
+    return [(sf.frame_index, sf.region_ids.tobytes(),
+             sf.interval_counts.tobytes(), sf.ys.tobytes(),
+             sf.lxs.tobytes(), sf.rxs.tobytes(),
+             None if sf.hierarchy is None else
+             [(lv.ids.tobytes(), np.asarray(lv.sizes).tobytes(),
+               None if lv.parent_ids is None
+               else np.asarray(lv.parent_ids).tobytes())
+              for lv in sf.hierarchy]) for sf in frames_out]
+
+
+def fused_phase(tmp, clips, n_solves, with_cli) -> tuple:
+    """Phase 24: the fused multi-clip batch fed from arrays, each clip
+    against its standalone run; then (with cv2 and protobuf) the three
+    modes of batch_segment over the same clips as .avi files.  Returns the
+    fused run's launch counts."""
+    from video_segment_tpu_torch import api
+    from video_segment_tpu_torch.core import batch, dense
+    n = len(clips[0])
+    h, w = clips[0][0].shape[:2]
+
+    def standalone(clip_frames):
+        ds = dense.DenseSegmentation(api.DenseSegmentationOptions(), w, h,
+                                     device="cuda")
+        res = []
+        for fr in clip_frames:
+            res += ds.process_frame(False, fr)
+        return res + ds.process_frame(True)
+
+    with deterministic():
+        singles = [standalone(c) for c in clips]
+        reset_launches(*kernel_wrappers())
+        bd = batch.BatchDenseSegmentation(
+            api.DenseSegmentationOptions(async_tail=True), w, h, len(clips),
+            device="cuda")
+        fused = [[] for _ in clips]
+        for step in range(n):
+            got = bd.process_frames(False, [c[step] for c in clips])
+            for i, sfs in enumerate(got):
+                fused[i] += sfs
+        for i, sfs in enumerate(bd.process_frames(True)):
+            fused[i] += sfs
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    for i, ds in enumerate(bd.clips):
+        if ds.device.type != "cuda":
+            raise AssertionError("fused batch: a clip ran off the card")
+        if len(ds.solve_diag) != n_solves:
+            raise AssertionError(f"fused batch: {len(ds.solve_diag)} "
+                                 f"solve_diag entries, want {n_solves}")
+        if signature(fused[i]) != signature(singles[i]):
+            raise AssertionError(f"fused batch: clip {i} differs from its "
+                                 "standalone run")
+    want = (len(clips) * n, len(clips) * n_solves, 0, 0)
+    if counts != want:
+        raise AssertionError(f"fused batch launches K1/K2/K4/K3 {counts}, "
+                             f"want {want}")
+    log("fused", f"{len(clips)} clips x {n} frames {w}x{h}, flow off, async "
+        f"tails: each clip's RLE and level-0 hierarchy equal its standalone "
+        f"run's bit for bit (deterministic algorithms); groups per step "
+        f"{bd.group_sizes}; launches K1 {counts[0]} K2 {counts[1]}")
+    if with_cli:
+        from video_segment_tpu_torch.tools import batch_segment
+        vids = [write_avi(os.path.join(tmp, f"clip{i}.avi"), c)
+                for i, c in enumerate(clips)]
+        for name, mode in (("sequential", []), ("fused", ["--fused"]),
+                           ("concurrent 2", ["--concurrent", "2"])):
+            run = run_cli(batch_segment.main, [
+                *vids, *mode, "--no-flow", "--output_dir",
+                os.path.join(tmp, "batch_" + name.replace(" ", ""))], want)
+            stats = json.loads(run["text"].strip().splitlines()[-1])
+            if stats["frames"] != len(clips) * n:
+                raise AssertionError(f"batch_segment {name}: {stats}")
+            log("fused", f"batch_segment {name}: {stats['frames']} frames "
+                f"in {stats['seconds']}s = {stats['fps']} fps (decode, "
+                f"dense and region stages, .pb encoding "
+                f"{sum(run['made']['emit']):.3f}s; launches K1/K2/K4/K3 "
+                f"{run['counts']})")
+    return counts
 
 
 def main() -> int:
@@ -915,13 +1417,9 @@ def main() -> int:
         f"{ {k: round(v, 1) for k, v in peaks.items()} }")
     if fm < 0.9:
         raise AssertionError(f"2 bands vs 1 band boundary F {fm:.4f} < 0.9")
-    del level0, frames_b
+    del level0
 
     # -- 18. checkpoint kill-and-resume on the card -------------------------
-    import os
-    import tempfile
-    import warnings
-
     from video_segment_tpu_torch.runtime import checkpoint
 
     def stages():
@@ -939,40 +1437,23 @@ def main() -> int:
             res += rs.process_frames(True, ds.process_frame(True))
         return res
 
-    def signature(frames_out):
-        return [(sf.frame_index, sf.region_ids.tobytes(),
-                 sf.interval_counts.tobytes(), sf.ys.tobytes(),
-                 sf.lxs.tobytes(), sf.rxs.tobytes(),
-                 None if sf.hierarchy is None else
-                 [(lv.ids.tobytes(), np.asarray(lv.sizes).tobytes(),
-                   None if lv.parent_ids is None
-                   else np.asarray(lv.parent_ids).tobytes())
-                  for lv in sf.hierarchy]) for sf in frames_out]
-
     t0 = time.monotonic()
     cut = 25
-    # Float atomics make a sum's last bit depend on the launch's schedule;
-    # the bitwise comparison runs both halves with deterministic kernels.
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            straight = feed(*stages(), frames_p, 0, True)
-            ds1, rs1 = stages()
-            first = feed(ds1, rs1, frames_p[:cut], 0, False)
-            with tempfile.TemporaryDirectory() as tmp:
-                path = os.path.join(tmp, "ckpt.pkl")
-                checkpoint.save(path, ds1, rs1, frames_consumed=cut)
-                ckpt_mib = os.path.getsize(path) / 2 ** 20
-                del ds1, rs1
-                ds2, rs2 = stages()
-                if checkpoint.restore(path, ds2, rs2) != cut:
-                    raise AssertionError("checkpoint: frames_consumed lost")
-            if ds2._buffer[0].device.type != "cuda":
-                raise AssertionError("checkpoint restored off the card")
-            resumed = first + feed(ds2, rs2, frames_p[cut:], cut, True)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    with deterministic():
+        straight = feed(*stages(), frames_p, 0, True)
+        ds1, rs1 = stages()
+        first = feed(ds1, rs1, frames_p[:cut], 0, False)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "ckpt.pkl")
+            checkpoint.save(path, ds1, rs1, frames_consumed=cut)
+            ckpt_mib = os.path.getsize(path) / 2 ** 20
+            del ds1, rs1
+            ds2, rs2 = stages()
+            if checkpoint.restore(path, ds2, rs2) != cut:
+                raise AssertionError("checkpoint: frames_consumed lost")
+        if ds2._buffer[0].device.type != "cuda":
+            raise AssertionError("checkpoint restored off the card")
+        resumed = first + feed(ds2, rs2, frames_p[cut:], cut, True)
     if len(straight) != N_PATH_FRAMES or \
             signature(resumed) != signature(straight):
         raise AssertionError("checkpoint: the resumed run differs from the "
@@ -982,7 +1463,29 @@ def main() -> int:
         f"the card: RLE and hierarchies equal the straight run's bit for "
         f"bit ({time.monotonic() - t0:.1f}s)")
 
-    # -- 19. the port stands alone -----------------------------------------
+    # -- 19-23. the command-line tools on the card -------------------------
+    n_st = 3 * n_solves_p     # K3 launches: 3 gated levels a chunk solve
+    cli_counts = None
+    missing = None
+    try:
+        import cv2  # noqa: F401  (the CLIs decode with it)
+        import google.protobuf  # noqa: F401  (and write .pb with it)
+    except ImportError as err:
+        missing = err.name
+        log("cli", f"module {missing!r} is missing on this machine: phases "
+            "19-23 (seg_tree, kill and resume through the CLI, the offline "
+            "tools) and batch_segment's timings are left out; the fused "
+            "batch still runs from arrays")
+    frames_c = synthetic_clip(N_PATH_FRAMES, seed=2)   # the second clip
+    with tempfile.TemporaryDirectory() as tmp:
+        if missing is None:
+            cli_counts = cli_phases(tmp, frames_p, frames_b, n_solves_p,
+                                    n_st)
+
+        fused_counts = fused_phase(tmp, [frames_p, frames_c], n_solves_p,
+                                   with_cli=missing is None)
+
+    # -- 25. the port stands alone -----------------------------------------
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     if jax_mods:
@@ -1001,13 +1504,17 @@ def main() -> int:
              replaces="video_segment_tpu/ops/tile_felz.py:474",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by,
-             library_ms=None, launches_banded=banded_launches[0]),
+             library_ms=None, launches_banded=banded_launches[0],
+             launches_seg_tree=cli_counts and cli_counts[0],
+             launches_fused=fused_counts[0]),
         dict(name="tile_reduce_min", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_extract.cu",
              replaces="video_segment_tpu/ops/tile_extract.py:102",
              launches=k2_launches, max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by,
              library_ms=k2_lib_ms, launches_banded=banded_launches[1],
+             launches_seg_tree=cli_counts and cli_counts[1],
+             launches_fused=fused_counts[1],
              band_ms=k2_band_ms, band_plain_ms=k2_band_plain_ms,
              band_bound_ms=k2_band_bound_ms),
         dict(name="tile_presegment", route="cuda",
@@ -1021,7 +1528,8 @@ def main() -> int:
              replaces="video_segment_tpu/ops/tile_table.py:358",
              launches=k3_launches, max_abs_err=k3_err, ms=k3_ms,
              plain_ms=k3_plain_ms, bound_ms=k3_bound_ms, bound_by=k3_by,
-             library_ms=None),
+             library_ms=None,
+             launches_seg_tree_supertile=cli_counts and cli_counts[3]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -10,6 +10,11 @@ the host modules the CLIs use (`runtime/pipeline`, `runtime/conversion`;
 `segment_util/render` needs protobuf through `util`, and
 `segment_util/metrics` needs cv2: both are left out, and nothing that
 `segment_frames` imports may pull them in).
+
+A second subprocess blocks only the JAX package, jax and jaxlib (the CLIs
+decode with cv2 and write with protobuf), imports every command-line tool
+and the fused batch stage, and runs `seg_tree.main` with `--no-flow
+--over_segment --device cpu` on a tiny clip it writes itself.
 """
 
 import os
@@ -123,3 +128,52 @@ def test_port_runs_without_jax_cv2_protobuf():
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("ok 7")
+
+
+CLI_SCRIPT = textwrap.dedent("""
+    import os, sys, tempfile
+    BLOCKED = ("video_segment_tpu", "jax", "jaxlib")
+    for name in BLOCKED:
+        sys.modules[name] = None
+    import cv2
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    from video_segment_tpu_torch.core import batch
+    from video_segment_tpu_torch.tools import (batch_segment, converter,
+                                               renderer, seg_tree,
+                                               video_example, viewer)
+
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiny.avi")
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10.0,
+                             (32, 24))
+        base = (rng.random((24, 32, 3)) * 80 + 40).astype(np.uint8)
+        for f in range(6):
+            img = base.copy()
+            img[6:18, 4 + 2 * f:16 + 2 * f] = (220, 180, 90)
+            vw.write(img)
+        vw.release()
+        rc = seg_tree.main(["--input_file", path, "--no-flow",
+                            "--over_segment", "--chunk_size", "4",
+                            "--max_rate", "0", "--no-dynamic_rate",
+                            "--device", "cpu"])
+        assert rc == 0, rc
+        assert os.listdir(tmp) == ["tiny.avi"]
+    loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                    and any(m == b or m.startswith(b + ".")
+                            for b in BLOCKED))
+    assert not loaded, loaded
+    print("cli ok")
+""")
+
+
+def test_cli_modules_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", CLI_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "Processed 6 frames" in proc.stdout
+    assert proc.stdout.strip().endswith("cli ok")

@@ -79,6 +79,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`.  Wrappers launch from several threads
+    (the pipeline's stage threads, concurrent clips), and `+=` on an
+    attribute is a read and a write that another thread can come between."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 RESOURCE_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                  "threads", "ctas_per_sm")
 

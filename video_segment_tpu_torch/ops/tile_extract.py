@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from video_segment_tpu_torch import _build
 from video_segment_tpu_torch.ops.tile_felz import TILE_H, TILE_W, NPIX
 
 I32MAX = 2 ** 31 - 1
@@ -43,7 +44,6 @@ def tile_reduce_min_plain(labr: torch.Tensor, labc: torch.Tensor,
 
 
 def _lib():
-    from video_segment_tpu_torch import _build
     lib = _build.load("tile_extract")
     if not getattr(lib, "_vst_typed", False):
         vp = ctypes.c_void_p
@@ -95,7 +95,7 @@ def tile_reduce_min(labr: torch.Tensor, labc: torch.Tensor,
     if err:
         raise RuntimeError(f"tile_extract kernel launch failed: CUDA error "
                            f"{err}")
-    tile_reduce_min.launches += 1
+    _build.count_launch(tile_reduce_min)
     return out
 
 

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from video_segment_tpu_torch import _build
+
 TILE_H = 8
 TILE_W = 128
 NPIX = TILE_H * TILE_W
@@ -290,7 +292,6 @@ class _Params(ctypes.Structure):
 
 
 def _lib():
-    from video_segment_tpu_torch import _build
     lib = _build.load("tile_felz")
     if not getattr(lib, "_vst_typed", False):
         vp = ctypes.c_void_p
@@ -369,7 +370,7 @@ def tile_felzenszwalb(vol: torch.Tensor,
             stream)
     if err:
         raise RuntimeError(f"tile_felz kernel launch failed: CUDA error {err}")
-    tile_felzenszwalb.launches += 1
+    _build.count_launch(tile_felzenszwalb)
     return labels, fin, stats
 
 

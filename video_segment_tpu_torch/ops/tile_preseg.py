@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from video_segment_tpu_torch import _build
 from video_segment_tpu_torch.ops import cc
 from video_segment_tpu_torch.ops.tile_felz import (NPIX, TILE_H, TILE_W,
                                                    _dist32, _from_tiles,
@@ -133,7 +134,6 @@ def tile_presegment_plain(vol: torch.Tensor, threshold: float = 0.002,
 
 
 def _lib():
-    from video_segment_tpu_torch import _build
     lib = _build.load("tile_preseg")
     if not getattr(lib, "_vst_typed", False):
         vp = ctypes.c_void_p
@@ -201,7 +201,7 @@ def flood_kernel(vol: torch.Tensor, threshold: float, metric: str,
     if err:
         raise RuntimeError(f"tile_preseg kernel launch failed: CUDA error "
                            f"{err}")
-    tile_presegment.launches += 1
+    _build.count_launch(tile_presegment)
     return out
 
 

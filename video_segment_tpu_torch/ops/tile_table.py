@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from video_segment_tpu_torch import _build
 from video_segment_tpu_torch.ops.tile_felz import sqrt32
 
 L = 128            # lane width of the (SR, 128) slot grid
@@ -159,7 +160,6 @@ class _Params(ctypes.Structure):
 
 
 def _lib():
-    from video_segment_tpu_torch import _build
     lib = _build.load("tile_table")
     if not getattr(lib, "_vst_typed", False):
         vp = ctypes.c_void_p
@@ -240,7 +240,7 @@ def tile_table_rounds(labr, labc, size, c0, c1, c2, fin, blocked, edges,
     if err:
         raise RuntimeError(f"tile_table kernel launch failed: CUDA error "
                            f"{err}")
-    tile_table_rounds.launches += 1
+    _build.count_launch(tile_table_rounds)
     return outr, outc
 
 
