@@ -53,8 +53,10 @@ Phases (each prints one line; any failure exits non-zero):
     pixel labelled, a hierarchy on each set start, every stage on the card,
     exact launch counts (K1 41, K2 3) in both modes; fps of both, the flow
     stage's seconds and ms per pair through push/flush; then both modes
-    again under deterministic algorithms: the two .pb files equal;
-20. the same at 480x854 (2 bands), both modes: K1 41, K2 6;
+    again under deterministic algorithms over the first 21 frames: the two
+    .pb files equal;
+20. the same at 480x854 (2 bands), both modes, over 21 frames: K1 21, K2
+    4;
 21. seg_tree --no-flow against segment_frames(use_flow=False) over the
     same decoded frames (level-0 boundary F), and once with --solver_param
     st_levels=3 --solver_param preseg_pair_merge=1 (K3 launches);
@@ -67,10 +69,22 @@ Phases (each prints one line; any failure exits non-zero):
     with the synchronous tail (K1 82, K2 6);
     seconds and fps of batch_segment --fused, sequential and
     --concurrent 2;
-25. no module of the JAX package (video_segment_tpu) and no jax was
+25. the off-default knobs, each a 41-frame 272x480 path with the
+    full hierarchy, flow off, launch counts exact: the variance descriptor
+    and the gradient trait (K1 41, K2 3), the gradient trait with
+    st_levels=3 and fine presegs (K3 0: the masked rounds, as the JAX
+    package's gate), the two-stage solve, the gradient trait at 480x854 (2
+    bands: K2 6), windowed appearance (window 10: tables non-empty); the
+    three dense knobs card vs CPU over 8 frames (boundary F); a windowed
+    kill and resume over 30 frames (bitwise); seg_tree --solver_param
+    gradient_trait=1 --region_param appearance_window_size=10
+    --region_param save_descriptors=1 (one RegionFeatures per region on
+    hierarchy frames);
+26. no module of the JAX package (video_segment_tpu) and no jax was
     imported.
-Phases 19-23 decode with cv2 and write with protobuf; where either is
-missing one line names it and the phases left out.
+Phases 19-23 and 25's seg_tree run decode with cv2 and write with
+protobuf; where either is missing one line names it and the phases left
+out.
 Then a JSON line of per-kernel results (time, launches on the main path,
 bound, plain and library times), the card's name and power limit from
 nvidia-smi, and the final {"ok": true, ...} line.
@@ -96,6 +110,7 @@ H, W = 272, 480
 BH, BW = 854, 480    # the banded path: bench config 3's geometry
 N_FRAMES = 60
 N_PATH_FRAMES = 41   # the flood and supertile paths: 3 chunk solves
+N_SHORT_FRAMES = 21  # seg_tree at 480x854, the deterministic pair: 2 solves
 KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table")
 
 # Peak rates of one H100 SXM for the bounds: HBM bytes/s and non-tensor
@@ -678,11 +693,14 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
             f"{seg_tree_summary(runs[mode])}; hierarchies at frames "
             f"{hier_at}; {len(np.unique(imgs[0]))} level-0 regions in "
             f"frame 0")
+    n_short = N_SHORT_FRAMES
+    want_short = (n_short, expected_chunk_solves(n_short, 20), 0, 0)
+    short = staged("short", frames_p[:n_short])
     det = {}
     with deterministic():
         for mode in ("--use_pipeline", "--no-use_pipeline"):
-            det[mode] = staged("det" + mode, src=master)
-            seg(det[mode], mode, want=want)
+            det[mode] = staged("det" + mode, src=short)
+            seg(det[mode], mode, want=want_short)
     if file_bytes(det["--use_pipeline"] + ".pb") != \
             file_bytes(det["--no-use_pipeline"] + ".pb"):
         raise AssertionError("seg_tree: the pipeline's .pb differs from the "
@@ -690,23 +708,24 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
     log("cli", "seg_tree under deterministic algorithms: --use_pipeline and "
         "--no-use_pipeline wrote the same "
         f"{os.path.getsize(det['--use_pipeline'] + '.pb')} bytes; launch "
-        f"counts exact in both ({want})")
+        f"counts exact in both ({want_short}, {n_short} frames)")
     cli_counts = list(runs["--use_pipeline"]["counts"])
 
-    # -- 20. seg_tree, 480x854, pipeline -----------------------------------
-    banded = staged("banded", frames_b)
+    # -- 20. seg_tree, 480x854, both modes, 21 frames ----------------------
+    banded = staged("banded", frames_b[:n_short])
     for mode in ("--use_pipeline", "--no-use_pipeline"):
         path = staged("banded" + mode, src=banded)
-        run = seg(path, mode, want=(n, 2 * n_solves, 0, 0))
+        run = seg(path, mode, want=(n_short, 2 * want_short[1], 0, 0))
         imgs, hier_at = read_pb(path + ".pb")
-        if imgs.shape != (n, BH, BW):
+        if imgs.shape != (n_short, BH, BW):
             raise AssertionError(f"seg_tree banded: .pb holds {imgs.shape}")
         del imgs
         ds = run["made"]["dense"][0]
         if (ds._bands, ds._pad_rows) != (2, 10):
             raise AssertionError(f"seg_tree banded: bands {ds._bands}, pad "
                                  f"rows {ds._pad_rows}")
-        log("cli", f"seg_tree {mode} {BW}x{BH} flow on, 2 bands: "
+        log("cli", f"seg_tree {mode} {BW}x{BH} flow on, 2 bands, "
+            f"{n_short} frames: "
             f"{seg_tree_summary(run)}; hierarchies at frames {hier_at}")
 
     # -- 21. seg_tree --no-flow against the API ------------------------------
@@ -883,6 +902,160 @@ def fused_phase(tmp, clips, n_solves, with_cli) -> tuple:
                 f"dense and region stages, .pb encoding "
                 f"{sum(run['made']['emit']):.3f}s; launches K1/K2/K4/K3 "
                 f"{run['counts']})")
+    return counts
+
+
+def knobs_phase(tmp, frames_p, frames_b, n_solves, with_cli) -> dict:
+    """Phase 25: the off-default solver and region knobs on the card, each
+    path through the entry points with its launch counts exact, then the
+    dense knobs card vs CPU, a windowed kill and resume, and (with cv2 and
+    protobuf) seg_tree with the knob flags.  Returns {path: (K1, K2, K4,
+    K3) launches}."""
+    from video_segment_tpu_torch import api
+    from video_segment_tpu_torch.core import dense, region
+    from video_segment_tpu_torch.core import oversegmentation as ov
+    from video_segment_tpu_torch.runtime import checkpoint
+    dev = torch.device("cuda", 0)
+    n = len(frames_p)
+    variance = ov.OversegParams(descriptor="color_mean_variance",
+                                merge_threshold=0.1, split_threshold=0.75)
+    gradient = ov.OversegParams(gradient_trait=True)
+    gated = ov.OversegParams(gradient_trait=True, st_levels=3,
+                             preseg_pair_merge=True)
+    two_stage = api.DenseSegmentationOptions(two_stage_oversegment=True)
+    windowed = api.RegionSegmentationOptions(use_flow=False,
+                                             appearance_window_size=10)
+    want = (n, n_solves, 0, 0)
+    counts = {}
+    paths = (("variance", frames_p, None, variance, None, want),
+             ("gradient", frames_p, None, gradient, None, want),
+             ("gradient+supertile gate", frames_p, None, gated, None, want),
+             ("two-stage", frames_p, two_stage, None, None, want),
+             ("gradient banded", frames_b, None, gradient, None,
+              (n, 2 * n_solves, 0, 0)),
+             ("windowed", frames_p, None, None, windowed, want))
+    for name, frames, dopts, params, ropts, want_c in paths:
+        h, w = frames[0].shape[:2]
+        reset_launches(*kernel_wrappers())
+        stream = api.SegmentStream(
+            iter(frames),
+            dense.DenseSegmentation(dopts or api.DenseSegmentationOptions(),
+                                    w, h, solver_params=params,
+                                    device="cuda"),
+            region.RegionSegmentation(
+                ropts or api.RegionSegmentationOptions(use_flow=False), w, h,
+                device="cuda"))
+        if name == "windowed":
+            seen = []
+            orig = stream.region._accumulate_windows
+
+            def recording(chunk, *a, orig=orig, seen=seen):
+                orig(chunk, *a)
+                seen.append((len(chunk.win_ids),
+                             float(chunk.win_cnt.sum())))
+            stream.region._accumulate_windows = recording
+        out, wall, peak = run_stream(stream, dev)
+        counts[name] = launch_counts()
+        sets = check_stream(out, stream, n)
+        if counts[name] != want_c:
+            raise AssertionError(f"{name} path launches K1/K2/K4/K3 "
+                                 f"{counts[name]}, want {want_c}")
+        if name == "gradient banded" and (stream.dense._bands,
+                                          stream.dense._pad_rows) != (2, 10):
+            raise AssertionError("gradient banded: not 2 bands, 10 pad rows")
+        extra = ""
+        if name == "windowed":
+            if not seen or min(c for _, c in seen) <= 0:
+                raise AssertionError(f"windowed tables empty: {seen}")
+            extra = (f"; windows per chunk {[k for k, _ in seen]}, samples "
+                     f"{[int(c) for _, c in seen]}")
+        log("knobs", f"{name}: {path_summary(out, stream, wall, peak, sets)}"
+            f"; launches K1/K2/K4/K3 {counts[name]}{extra}")
+
+    # Dense knobs, card vs CPU (the same port on the same frames).
+    for name, options, params in (
+            ("variance", api.DenseSegmentationOptions(), variance),
+            ("gradient", api.DenseSegmentationOptions(), gradient),
+            ("two-stage", two_stage, None)):
+        t0 = time.monotonic()
+        fm, n_reg, _ = dense_card_vs_cpu(frames_p[:8], options, params)
+        log("knobs", f"{name}: 8 frames, one flush chunk, card vs CPU: "
+            f"boundary F {fm:.4f} (regions {n_reg}; "
+            f"{time.monotonic() - t0:.1f}s)")
+        if fm < 0.9:
+            raise AssertionError(f"{name}: card vs CPU boundary F {fm:.4f} "
+                                 "< 0.9")
+
+    # Windowed kill and resume over 30 frames (cut at 25: the first chunk
+    # closed, window 2 open), bitwise.
+    def stages():
+        return (dense.DenseSegmentation(api.DenseSegmentationOptions(), W, H,
+                                        device="cuda"),
+                region.RegionSegmentation(windowed, W, H, device="cuda"))
+
+    def feed(ds, rs, chunk, start, flush):
+        res = []
+        for i, fr in enumerate(chunk, start=start):
+            rs.add_frame(i, fr)
+            res += rs.process_frames(False, ds.process_frame(False, fr))
+        if flush:
+            res += rs.process_frames(True, ds.process_frame(True))
+        return res
+
+    t0 = time.monotonic()
+    cut, frames_k = 25, frames_p[:30]
+    with deterministic():
+        straight = feed(*stages(), frames_k, 0, True)
+        ds1, rs1 = stages()
+        first = feed(ds1, rs1, frames_k[:cut], 0, False)
+        path = os.path.join(tmp, "windowed.ckpt")
+        checkpoint.save(path, ds1, rs1, frames_consumed=cut)
+        if cut // 10 not in rs1._window_anchor or not rs1._frame_means:
+            raise AssertionError("windowed checkpoint: no window state")
+        del ds1, rs1
+        ds2, rs2 = stages()
+        checkpoint.restore(path, ds2, rs2)
+        resumed = first + feed(ds2, rs2, frames_k[cut:], cut, True)
+    if signature(resumed) != signature(straight):
+        raise AssertionError("windowed checkpoint: the resumed run differs")
+    log("knobs", f"windowed kill and resume, {len(frames_k)} frames: "
+        f"killed after frame {cut} "
+        f"(window {cut // 10} open, checkpoint "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB), resumed run equals the "
+        f"straight run bit for bit ({time.monotonic() - t0:.1f}s)")
+
+    if with_cli:
+        from video_segment_tpu_torch import proto
+        from video_segment_tpu_torch.dataio import seg_io
+        from video_segment_tpu_torch.tools import seg_tree
+        clip = write_avi(os.path.join(tmp, "knobs.avi"), frames_p)
+        run = run_cli(seg_tree.main, [
+            "--input_file", clip, "--no-flow", "--write_to_file",
+            "--max_rate", "0", "--no-dynamic_rate", "--solver_param",
+            "gradient_trait=1", "--region_param", "appearance_window_size=10",
+            "--region_param", "save_descriptors=1"], want)
+        counts["seg_tree"] = run["counts"]
+        read_pb(clip + ".pb")
+        reader = seg_io.SegmentationReader(clip + ".pb")
+        reader.open_and_read_headers()
+        n_feat = []
+        for payload in reader:
+            desc = proto.SegmentationDesc()
+            desc.ParseFromString(payload)
+            if len(desc.hierarchy):
+                if [f.id for f in desc.features] != \
+                        [r.id for r in desc.region]:
+                    raise AssertionError("save_descriptors: a hierarchy "
+                                         "frame's features do not match its "
+                                         "regions")
+                n_feat.append(len(desc.features))
+        reader.close()
+        if not n_feat:
+            raise AssertionError("save_descriptors: no hierarchy frame")
+        log("knobs", f"seg_tree --no-flow --solver_param gradient_trait=1 "
+            f"--region_param appearance_window_size=10 --region_param "
+            f"save_descriptors=1: {seg_tree_summary(run)}; RegionFeatures "
+            f"per hierarchy frame {n_feat}, one per region")
     return counts
 
 
@@ -1485,7 +1658,13 @@ def main() -> int:
         fused_counts = fused_phase(tmp, [frames_p, frames_c], n_solves_p,
                                    with_cli=missing is None)
 
-    # -- 25. the port stands alone -----------------------------------------
+        # -- 25. the off-default knobs ---------------------------------------
+        t0 = time.monotonic()
+        knob_counts = knobs_phase(tmp, frames_p, frames_b, n_solves_p,
+                                  with_cli=missing is None)
+        log("knobs", f"phase 25 took {time.monotonic() - t0:.1f}s")
+
+    # -- 26. the port stands alone -----------------------------------------
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     if jax_mods:
@@ -1506,7 +1685,8 @@ def main() -> int:
              plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by,
              library_ms=None, launches_banded=banded_launches[0],
              launches_seg_tree=cli_counts and cli_counts[0],
-             launches_fused=fused_counts[0]),
+             launches_fused=fused_counts[0],
+             launches_knobs={k: v[0] for k, v in knob_counts.items()}),
         dict(name="tile_reduce_min", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_extract.cu",
              replaces="video_segment_tpu/ops/tile_extract.py:102",
@@ -1515,6 +1695,7 @@ def main() -> int:
              library_ms=k2_lib_ms, launches_banded=banded_launches[1],
              launches_seg_tree=cli_counts and cli_counts[1],
              launches_fused=fused_counts[1],
+             launches_knobs={k: v[1] for k, v in knob_counts.items()},
              band_ms=k2_band_ms, band_plain_ms=k2_band_plain_ms,
              band_bound_ms=k2_band_bound_ms),
         dict(name="tile_presegment", route="cuda",
@@ -1522,14 +1703,16 @@ def main() -> int:
              replaces="video_segment_tpu/ops/tile_preseg.py:98",
              launches=k4_launches, max_abs_err=k4_err, ms=k4_ms,
              plain_ms=k4_plain_ms, bound_ms=k4_bound_ms, bound_by=k4_by,
-             library_ms=None),
+             library_ms=None,
+             launches_knobs={k: v[2] for k, v in knob_counts.items()}),
         dict(name="tile_table_rounds", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_table.cu",
              replaces="video_segment_tpu/ops/tile_table.py:358",
              launches=k3_launches, max_abs_err=k3_err, ms=k3_ms,
              plain_ms=k3_plain_ms, bound_ms=k3_bound_ms, bound_by=k3_by,
              library_ms=None,
-             launches_seg_tree_supertile=cli_counts and cli_counts[3]),
+             launches_seg_tree_supertile=cli_counts and cli_counts[3],
+             launches_knobs={k: v[3] for k, v in knob_counts.items()}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -213,6 +213,48 @@ def test_banded_oversegment_matches_jax(case):
     the tile felz pre-solve (8-row bands: every tile row is a band), with
     per-band table slots as the dense stage sets them: exact against JAX on
     the scatter and the K2 tile extraction forms."""
+    _banded_case(case, {})
+
+
+KNOB_CASES = [("gradient", "free_flow"),
+              ("two_stage", "free"), ("two_stage", "head_planes_flow"),
+              ("variance-gradient-two_stage", "head_planes")]
+
+
+@pytest.mark.parametrize("knob,case", KNOB_CASES,
+                         ids=[f"{k}-{c}" for k, c in KNOB_CASES])
+def test_banded_trait_knobs_match_jax(knob, case):
+    """The banded solve under the gradient trait (5-channel band volumes,
+    aggregated buckets at the seams, glued gradient sums) and the
+    two-stage pre-pass (its spatial slice of the glued table leaves the
+    boundary rows out, as JAX's does), label for label against JAX."""
+    from test_torch_oversegmentation import VAR
+    _banded_case(case, {"gradient": dict(gradient_trait=True),
+                        "two_stage": dict(two_stage=True),
+                        "variance-gradient-two_stage": dict(
+                            VAR, gradient_trait=True, two_stage=True)}[knob])
+
+
+def test_boundary_edges_gradient_match_jax():
+    """Seam edges of a 5-channel (color + gradient) volume: the pair
+    distance aggregates the gradient difference as in JAX."""
+    rng = np.random.default_rng(18)
+    t, B, bh, w, G = 3, 3, 8, 40, 3000
+    vol = rng.random((t, B * bh, w, 5)).astype(np.float32)
+    vol[..., 3:] = (vol[..., 3:] - 0.5) * 0.2
+    memb = rng.integers(G - 60, G + 1, (t, B * bh, w)).astype(np.int32)
+    pj = jov.OversegParams(gradient_trait=True)
+    want = np.asarray(jov._boundary_edges(
+        jnp.asarray(vol), jnp.asarray(memb), B, bh, G, pj, True))
+    got = tov._boundary_edges(torch.from_numpy(vol), torch.from_numpy(memb),
+                              B, bh, G, tov.params_from_jax(pj), True).numpy()
+    plain = tov._boundary_edges(torch.from_numpy(vol), torch.from_numpy(memb),
+                                B, bh, G, tov.OversegParams(), True).numpy()
+    assert not np.array_equal(got, plain)
+    np.testing.assert_array_equal(got, want)
+
+
+def _banded_case(case, knobs):
     constrained = case.startswith("head_planes")
     vol, init, fin, params, kw = _inputs(11, constrained)
     t, h, w = init.shape
@@ -231,7 +273,8 @@ def test_banded_oversegment_matches_jax(case):
     n_seeds = int(is_root.sum(axis=(0, 2, 3)).max())
     params = params._replace(
         bands=bands, table_slots=0,
-        band_table_slots=((n_seeds + 1024 + 16383) // 16384) * 16384)
+        band_table_slots=((n_seeds + 1024 + 16383) // 16384) * 16384,
+        **knobs)
     want = _run_jax(vol, init, fin, params, kw)
     mono = _run_jax(vol, init, fin, params._replace(bands=1), kw)
     assert not np.array_equal(np.asarray(want.label), np.asarray(mono.label))

@@ -381,3 +381,54 @@ def test_dense_supertile_kernel_path_vs_jax_masked():
     img = chip_smoke.rasterize(got)
     ref = chip_smoke.rasterize(want)
     assert chip_smoke.boundary_f(img, ref) >= 0.98
+
+
+DENSE_KNOBS = {
+    "variance": (dict(), dict(descriptor="color_mean_variance",
+                              merge_threshold=0.1, split_threshold=0.75)),
+    "gradient": (dict(), dict(gradient_trait=True)),
+    "two_stage": (dict(two_stage_oversegment=True), dict()),
+}
+
+
+def _knob_stages(knob):
+    from video_segment_tpu.core import oversegmentation as jov
+    from video_segment_tpu_torch.core import oversegmentation as tov
+    opt_kw, solver_kw = DENSE_KNOBS[knob]
+    opts = _options(**opt_kw)
+    jp = jov.OversegParams(**solver_kw)
+    return opts, jp, tov.params_from_jax(jp)
+
+
+@pytest.mark.parametrize("knob", list(DENSE_KNOBS))
+def test_dense_knobs_match_jax(knob):
+    """The dense stage with the variance descriptor, the gradient trait
+    (solver_params) and the two-stage solve (the dense option; the stage
+    sets OversegParams.two_stage from it), felz pinned: exact against
+    JAX over three chunk solves."""
+    frames = clip(n=7)
+    opts, jp, tp = _knob_stages(knob)
+    want = run(jdense.DenseSegmentation(opts, W, H, solver_params=jp),
+               frames)
+    ds = tdense.DenseSegmentation(toptions(opts), W, H, solver_params=tp,
+                                  device="cpu")
+    got = run(ds, frames)
+    assert ds._params.two_stage == (knob == "two_stage")
+    assert_frames_equal(got, want)
+    assert max(len(sf.region_ids) for sf in got) > 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", list(DENSE_KNOBS))
+def test_dense_knobs_card_vs_cpu(knob):
+    """Each knob's dense stage on the card against the port on the CPU:
+    level-0 boundary F >= 0.9 (only float-atomic order differs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels have no CPU mode)")
+    import chip_smoke
+    frames = clip(n=7)
+    opts, _, tp = _knob_stages(knob)
+    imgs = [chip_smoke.rasterize(run(tdense.DenseSegmentation(
+        toptions(opts), W, H, solver_params=tp, device=dev), frames))
+        for dev in ("cuda", "cpu")]
+    assert chip_smoke.boundary_f(*imgs) >= 0.9

@@ -518,12 +518,13 @@ def _ckpt_video(n, h=24, w=40):
     return frames
 
 
-def _ckpt_stages(bands=0, package="port"):
+def _ckpt_stages(bands=0, package="port", window=0):
     dopts = dict(chunk_size=5, presmoothing="gaussian",
                  frac_min_region_size=0.08, preseg_mode="felz",
                  solver_bands=bands)
     ropts = dict(chunk_set_size=2, chunk_set_overlap=1, min_region_num=2,
-                 max_region_num=40, use_flow=False)
+                 max_region_num=40, use_flow=False,
+                 appearance_window_size=window)
     if package == "jax":
         from video_segment_tpu.core import dense, region
         return (dense.DenseSegmentation(
@@ -564,20 +565,25 @@ def _sig(frames_out):
     return sig
 
 
-@pytest.mark.parametrize("bands", [0, 2], ids=["monolithic", "banded"])
-def test_kill_and_resume_matches_straight_run(tmp_path, bands):
+@pytest.mark.parametrize("bands,window", [(0, 0), (2, 0), (0, 4)],
+                         ids=["monolithic", "banded", "windowed"])
+def test_kill_and_resume_matches_straight_run(tmp_path, bands, window):
     """Run half, checkpoint, build fresh stages, restore, continue: the
     output stream equals the straight run's bit for bit (RLE and
-    hierarchies), also with padded, banded buffers."""
+    hierarchies), also with padded, banded buffers, and with windowed
+    appearance (the cut falls inside a window whose anchor and frame means
+    the checkpoint carries)."""
     frames = _ckpt_video(20)
-    ref_out = _feed(*_ckpt_stages(bands), frames, 0, True)
-    ds1, rs1 = _ckpt_stages(bands)
+    ref_out = _feed(*_ckpt_stages(bands, window=window), frames, 0, True)
+    ds1, rs1 = _ckpt_stages(bands, window=window)
     cut = 11
     out_a = _feed(ds1, rs1, frames[:cut], 0, False)
+    if window:
+        assert 11 // window in rs1._window_anchor and rs1._frame_means
     path = str(tmp_path / "ckpt.pkl")
     tckpt.save(path, ds1, rs1, frames_consumed=cut, extra={"pos": 7})
     del ds1, rs1
-    ds2, rs2 = _ckpt_stages(bands)
+    ds2, rs2 = _ckpt_stages(bands, window=window)
     assert tckpt.restore(path, ds2, rs2) == cut
     assert tckpt.load_extra(path) == {"pos": 7}
     assert ds2._buffer[0].shape[0] == (32 if bands else 24)
@@ -601,18 +607,16 @@ def test_restore_rejects_geometry_mismatch_and_foreign_files(tmp_path):
     tckpt.save(path, ds, None)
     with pytest.raises(ValueError, match="no region-stage state"):
         tckpt.restore(path, *_ckpt_stages())
-    # A live appearance window (not run by this package) is refused.
+    # The region block carries the appearance-window state as the JAX
+    # package's does: the stage's own anchors and frame means.
+    rs.add_frame(0, _ckpt_video(1)[0])
     tckpt.save(path, ds, rs)
     with open(path, "rb") as f:
         state = pickle.load(f)
     assert state["magic"] == jckpt._MAGIC == tckpt._MAGIC
-    assert state["region"]["window_anchor"] == {} \
-        and state["region"]["frame_means"] == {}
-    state["region"]["window_anchor"] = {0: np.zeros(3)}
-    with open(path, "wb") as f:
-        pickle.dump(state, f)
-    with pytest.raises(ValueError, match="windowed appearance"):
-        tckpt.restore(path, *_ckpt_stages())
+    assert state["region"]["window_anchor"] == {}
+    np.testing.assert_array_equal(state["region"]["frame_means"][0],
+                                  rs._frame_means[0])
     with open(path, "wb") as f:
         pickle.dump({"magic": "something else"}, f)
     with pytest.raises(ValueError, match="not a video_segment_tpu"):

@@ -5,7 +5,10 @@ import raise), imports the port and its kernel modules, runs a tiny
 `segment_frames(..., device="cpu")` end to end with flow off and with its
 default flow on (the port's TV-L1 engine), and runs the dense stage with
 the flood pre-segmentation (K4), with K3 supertile levels and banded
-(`solver_bands=2`), checkpoints and restores the banded stage, and drives
+(`solver_bands=2`), checkpoints and restores the banded stage, runs the
+off-default knobs (the variance descriptor with the gradient trait of
+`ops/pixel_distance`, the two-stage solve, windowed appearance with
+`save_descriptors`) through both stages, and drives
 the host modules the CLIs use (`runtime/pipeline`, `runtime/conversion`;
 `segment_util/render` needs protobuf through `util`, and
 `segment_util/metrics` needs cv2: both are left out, and nothing that
@@ -107,6 +110,32 @@ SCRIPT = textwrap.dedent("""
     for a, b in zip(res, straight):
         assert np.array_equal(a.region_ids, b.region_ids)
         assert np.array_equal(a.lxs, b.lxs) and np.array_equal(a.rxs, b.rxs)
+    # The off-default knobs: the variance descriptor, the gradient trait
+    # (ops/pixel_distance), the two-stage solve, windowed appearance.
+    from video_segment_tpu_torch.core import region
+    from video_segment_tpu_torch.ops import pixel_distance
+    g = pixel_distance.gradient_features(torch.rand(2, 8, 16, 3))
+    assert g.shape == (2, 8, 16, 2)
+    for opts, params in (
+            (DenseSegmentationOptions(chunk_size=3),
+             ov.OversegParams(descriptor="color_mean_variance",
+                              merge_threshold=0.1, split_threshold=0.75,
+                              gradient_trait=True)),
+            (DenseSegmentationOptions(chunk_size=3,
+                                      two_stage_oversegment=True), None)):
+        ds = dense.DenseSegmentation(opts, 128, 16, solver_params=params,
+                                     device="cpu")
+        rs = region.RegionSegmentation(RegionSegmentationOptions(
+            chunk_set_size=2, chunk_set_overlap=1, min_region_num=2,
+            max_region_num=40, use_flow=False, appearance_window_size=3,
+            save_descriptors=True), 128, 16, device="cpu")
+        res = []
+        for i, fr in enumerate(frames):
+            rs.add_frame(i, fr)
+            res += rs.process_frames(False, ds.process_frame(False, fr))
+        res += rs.process_frames(True, ds.process_frame(True))
+        assert [sf.frame_index for sf in res] == list(range(7))
+        assert any(sf.hierarchy for sf in res)
     root = pipeline.Unit("src")
     root.add_child(conversion.flip_bgr_unit()).add_child(
         conversion.luminance_unit())

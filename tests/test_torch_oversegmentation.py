@@ -9,6 +9,7 @@ stage builds them.  JAX runs its proven-equal scatter extraction
 label, constr, size and orig must be exact.
 """
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -134,13 +135,15 @@ def test_oversegment_knobs_match_jax(knob):
 
 
 def test_scope_raises():
+    """Only the v1 pixel solver is refused; every off-default knob of the
+    edge-table solver runs."""
     vol = torch.zeros((2, 8, 128, 3))
+    with pytest.raises(NotImplementedError, match="v1 pixel solver"):
+        tov.oversegment(vol, params=tov.OversegParams(edge_table=False))
     for p in (tov.OversegParams(two_stage=True),
               tov.OversegParams(gradient_trait=True),
-              tov.OversegParams(descriptor="color_mean_variance"),
-              tov.OversegParams(edge_table=False)):
-        with pytest.raises(NotImplementedError):
-            tov.oversegment(vol, params=p)
+              tov.OversegParams(descriptor="color_mean_variance")):
+        assert tov.oversegment(vol, params=p).label.shape == (2, 8, 128)
     # Flow and the banded solve are ported; a band height that is not a
     # multiple of 8 rows raises as in the JAX package.
     with pytest.raises(ValueError):
@@ -364,3 +367,208 @@ def test_supertile_blocked_plane_follows_current_constraints():
                                          dtype=torch.int32))
     _, _, _, blocked = tov._st_level_planes(st, ts)
     assert blocked.reshape(-1)[:8].tolist() == [1, 0, 0, 0, 0, 0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# Off-default knobs: the variance descriptor, the gradient trait (each
+# aggregator), the two-stage spatial pre-pass.
+
+VAR = dict(descriptor="color_mean_variance", merge_threshold=0.1,
+           split_threshold=0.75)
+TRAIT_KNOBS = {
+    "variance": VAR,
+    "gradient-independent": dict(gradient_trait=True),
+    "gradient-linear": dict(gradient_trait=True, aggregator="linear",
+                            linear_weight=0.3),
+    "gradient-sqrt": dict(gradient_trait=True, aggregator="sqrt"),
+    "two_stage": dict(two_stage=True),
+    "variance-gradient-two_stage": dict(VAR, gradient_trait=True,
+                                        two_stage=True),
+}
+
+
+def _assert_same(got, want, what=""):
+    for field in ("label", "constr", "size", "orig"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=f"{field} {what}")
+
+
+TRAIT_CASES = ([(k, c) for k in TRAIT_KNOBS for c in ("free", "head_planes")]
+               + [("gradient-independent", "flow"),
+                  ("variance-gradient-two_stage", "flow")])
+
+
+@pytest.mark.parametrize("knob,case", TRAIT_CASES,
+                         ids=[f"{k}-{c}" for k, c in TRAIT_CASES])
+def test_oversegment_trait_knobs_match_jax(knob, case):
+    """Each knob, with and without constraints and init labels (head
+    planes), and the gradient knobs with flow-displaced temporal edges:
+    exact against JAX on the scatter and the K2 tile extraction."""
+    vol, init, fin, params, kw = _inputs(11, case == "head_planes")
+    if case == "flow":
+        kw["flow"] = _flow(21)
+    params = params._replace(**TRAIT_KNOBS[knob])
+    want = _run_jax(vol, init, fin, params, kw)
+    plain = _run_jax(vol, init, fin, params._replace(
+        **tov.OversegParams()._asdict()), kw) if case == "free" else None
+    for extract_tile in (False, True):
+        got = _run_port(vol, init, fin, params, kw, extract_tile)
+        _assert_same(got, want, f"(extract_tile={extract_tile})")
+    if plain is not None:   # the knob changed the result
+        assert not np.array_equal(np.asarray(plain.label),
+                                  np.asarray(want.label))
+
+
+def test_init_table_trait_statistics_match_jax():
+    """Seed statistics under the variance descriptor and the gradient
+    trait (5-channel volume, cell stats bypassed): sizes exact, color,
+    square and gradient sums within 1e-5 of JAX's."""
+    from video_segment_tpu.ops import pixel_distance as jpd
+    from video_segment_tpu_torch.ops import pixel_distance as tpd
+    vol, init, fin, params, kw = _inputs(11, True)
+    n = init.size
+    pj = params._replace(**VAR, gradient_trait=True)
+    vol5 = np.array(jax.jit(lambda v: jnp.concatenate(
+        [v, jpd.gradient_features(v)], -1))(vol))
+    np.testing.assert_array_equal(
+        vol5, torch.cat([torch.from_numpy(vol), tpd.gradient_features(
+            torch.from_numpy(vol))], -1).numpy())
+    r_cap = jov._table_cap(pj, n, H, W, True)
+    cells = kw["cell_stats"]
+    want, wmemb, worig = jov._init_table(
+        jnp.asarray(vol5), jnp.asarray(init.reshape(-1)),
+        jnp.asarray(kw["constraints"].reshape(-1)),
+        jnp.asarray(kw["frozen"].reshape(-1)), jnp.asarray(fin.reshape(-1)),
+        r_cap, True, pj, tuple(jnp.asarray(c) for c in cells), 2)
+    got, memb, orig = tov._init_table(
+        torch.from_numpy(vol5), torch.from_numpy(init.reshape(-1)),
+        torch.from_numpy(kw["constraints"].reshape(-1)),
+        torch.from_numpy(kw["frozen"].reshape(-1)),
+        torch.from_numpy(fin.reshape(-1)), r_cap, True,
+        tuple(torch.from_numpy(c) for c in cells), 2,
+        tov.params_from_jax(pj))
+    np.testing.assert_array_equal(memb.numpy(), np.asarray(wmemb))
+    np.testing.assert_array_equal(orig.numpy(), np.asarray(worig))
+    for field in ("size", "constr", "fin", "frozen"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
+    for field in ("csum", "sqsum", "gsum"):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(want, field)),
+                                   rtol=0, atol=1e-5, err_msg=field)
+    assert float(np.abs(np.asarray(want.gsum)).max()) > 0.1
+
+
+@pytest.mark.parametrize("aggregator", ["linear", "independent", "sqrt"])
+def test_gradient_trait_solve_matches_jax(aggregator):
+    """The JAX package's own gradient-trait case: equal-mean flat and
+    striped halves stay apart under each aggregator, and the port's labels
+    equal JAX's."""
+    h, w = 16, 32
+    vol = np.full((2, h, w, 3), 0.5, np.float32)
+    vol[:, :, w // 2:] += 0.3 * np.tile([1.0, -1.0], w // 4)[None, None, :,
+                                                             None]
+    kw = dict(min_region_size=1, table_divisor=2, preseg_schedule=(4,),
+              gradient_trait=True, aggregator=aggregator)
+    want = jov.oversegment(jnp.asarray(vol), params=jov.OversegParams(**kw))
+    got = tov.oversegment(torch.from_numpy(vol),
+                          params=tov.OversegParams(**kw))
+    _assert_same(got, want)
+    lab = got.label.numpy()
+    assert not (set(np.unique(lab[:, :, :w // 2 - 2]))
+                & set(np.unique(lab[:, :, w // 2 + 2:])))
+
+
+@pytest.mark.parametrize("sigma,n_regions", [(0.6, 1), (0.03, 2)])
+def test_variance_trait_adaptive_gating_matches_jax(sigma, n_regions):
+    """The JAX package's own variance case: a 0.1 mean gap between two
+    seeded halves merges under high variance and stays split under low."""
+    rng = np.random.default_rng(3)
+    h, w = 16, 32
+    init = np.zeros((1, h, w), np.int32)
+    init[:, :, w // 2:] = w // 2
+    vol = np.zeros((1, h, w, 3), np.float32)
+    vol[:, :, :w // 2] = 0.45
+    vol[:, :, w // 2:] = 0.55
+    vol = np.clip(vol + rng.normal(0, sigma, vol.shape).astype(np.float32),
+                  0.0, 1.0)
+    kw = dict(min_region_size=1, schedule=(64, 512, 2047), **VAR)
+    want = jov.oversegment(jnp.asarray(vol), init_label=jnp.asarray(init),
+                           params=jov.OversegParams(**kw))
+    got = tov.oversegment(torch.from_numpy(vol),
+                          init_label=torch.from_numpy(init),
+                          params=tov.OversegParams(**kw))
+    _assert_same(got, want)
+    assert len(np.unique(got.label.numpy())) == n_regions
+
+
+def test_trait_distance_matches_jax():
+    """`_trait_distance` (variance: z-score over the pooled variance,
+    clamped; color_mean: with the force-merge shortcut) and `_thresholds`
+    for each aggregator, against JAX's."""
+    rng = np.random.default_rng(8)
+    ma, mb = (rng.random((4000, 3)).astype(np.float32) for _ in range(2))
+    va, vb = ((rng.random((4000, 3)) * 0.02).astype(np.float32)
+              for _ in range(2))
+    va[:100] = 0.0                       # pooled variance clamps at 1e-4
+    bkt = rng.integers(0, 8, 4000).astype(np.int32)
+    for kw in (VAR, {}):
+        pj = jov.OversegParams(**kw)
+        want = jov._trait_distance(*(jnp.asarray(x) for x in
+                                     (ma, va, mb, vb, bkt)), pj)
+        got = tov._trait_distance(*(torch.from_numpy(x) for x in
+                                    (ma, va, mb, vb, bkt)),
+                                  tov.params_from_jax(pj))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert (got.numpy() == 1.0).any() == bool(kw)
+    for agg in ("linear", "independent", "sqrt"):
+        pj = jov.OversegParams(gradient_trait=True, aggregator=agg,
+                               linear_weight=0.3)
+        assert tov._thresholds(tov.params_from_jax(pj)) == \
+            jov._thresholds(pj)
+
+
+@pytest.mark.parametrize("knob", ["gradient_trait", "variance", "two_stage"])
+def test_supertile_gate_takes_masked_rounds(knob, monkeypatch):
+    """Under each knob the K3 path is refused (JAX's gate): with
+    st_kernel=True the port never calls K3's wrapper and equals JAX's
+    masked rounds."""
+    from video_segment_tpu_torch.ops import tile_table
+    kw = {"gradient_trait": dict(gradient_trait=True), "variance": VAR,
+          "two_stage": dict(two_stage=True)}[knob]
+    vol, _ = _st_volume()
+    n_pix = vol[..., 0].size
+    pj = jov.OversegParams(table_slots=n_pix, st_kernel=False, **kw,
+                           **ST_COMMON)
+    pt = tov.params_from_jax(pj)._replace(st_kernel=True)
+    assert not tov._use_st_kernel(pt)
+    assert tov._use_st_kernel(tov.params_from_jax(
+        jov.OversegParams(**ST_COMMON))._replace(st_kernel=True))
+
+    def refuse(**_):
+        raise AssertionError("K3 called under a gated knob")
+
+    monkeypatch.setattr(tile_table, "tile_table_rounds", refuse)
+    want = jov.oversegment(jnp.asarray(vol), params=pj)
+    got = tov.oversegment(torch.from_numpy(vol), params=pt)
+    _assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_supertile_gate_launches_no_k3_on_the_card():
+    """On the card, gradient_trait with st_levels=3 and st_kernel=None
+    (K3 by default) launches K3 zero times; without the trait it does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernel has no CPU mode)")
+    from video_segment_tpu_torch.ops import tile_table
+    vol, _ = _st_volume()
+    vol = torch.from_numpy(vol).cuda()
+    for trait, want in ((True, 0), (False, 3)):
+        tile_table.tile_table_rounds.launches = 0
+        p = tov.OversegParams(table_slots=vol[..., 0].numel(),
+                              gradient_trait=trait, **ST_COMMON)
+        tov.oversegment(vol, params=p)
+        torch.cuda.synchronize()
+        assert tile_table.tile_table_rounds.launches == want

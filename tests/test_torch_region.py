@@ -560,3 +560,237 @@ def test_segment_video_flow_writes_pb(tmp_path):
                    for iv in reg.raster.scan_inter)
         assert area == W * H
     assert len(desc.region) >= 2
+
+
+# ---------------------------------------------------------------------------
+# Windowed appearance (appearance_window_size > 0).
+
+
+def _window_tables(seed, hist, r, nw=4):
+    """Per-window tables that split each region's histogram over a run of
+    windows (counts 0 outside it), with a per-window tilt so that the
+    windowed distance differs from the whole-histogram one."""
+    rng = np.random.default_rng(seed + 100)
+    rcap, bins = hist.shape
+    whist = np.zeros((nw, rcap, bins), np.float32)
+    wcnt = np.zeros((nw, rcap), np.float32)
+    for i in range(r):
+        w0 = int(rng.integers(0, nw))
+        w1 = int(rng.integers(w0 + 1, nw + 1))
+        for w in range(w0, w1):
+            tilt = rng.random(bins).astype(np.float32) * 0.2 + 0.9
+            whist[w, i] = hist[i] * tilt / (w1 - w0)
+            wcnt[w, i] = int(rng.integers(5, 300))
+    return whist, wcnt
+
+
+def test_edge_color_distance_windowed_matches_jax():
+    """Within 1e-6 of `jax.jit` of the JAX function (bitwise on the CPU:
+    the chi-square sums run in XLA's order), with windows absent on either
+    side, edges whose two sides share no window (no finite minimum: 0),
+    and batches shorter than a whole batch."""
+    import jax
+    from video_segment_tpu.ops import histograms as jhops
+    from video_segment_tpu_torch.ops import histograms as thops
+    hist, _, edges, r = _hist_problem(14, r=120, bins=4000)
+    whist, wcnt = _window_tables(14, hist, r, nw=5)
+    wcnt[:, 0] = 0.0
+    wcnt[:, 1] = [0, 0, 0, 0, 7]
+    wcnt[:, 2] = [9, 9, 0, 0, 0]
+    edges = np.concatenate([edges, [[0, 3], [1, 2], [2, 1]]]).astype(np.int32)
+    want = np.asarray(jax.jit(jhops.edge_color_distance_windowed)(
+        whist, wcnt, edges))
+    got = thops.edge_color_distance_windowed(
+        torch.from_numpy(whist), torch.from_numpy(wcnt),
+        torch.from_numpy(edges), batch=100).numpy()
+    assert got[-3] == 0.0 and got[-2] == 0.0
+    assert (want > 0).sum() > len(edges) // 2
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7, 8, 9])
+def test_agglomerate_windowed_matches_jax(seed):
+    """`agglomerate` with window tables (their distance replaces the
+    appearance term; they re-aggregate per root): every level equals the
+    JAX package's, free for seeds 5-7, constrained for 8-9."""
+    hist, sizes, edges, r = _hist_problem(seed, bins=300)
+    whist, wcnt = _window_tables(seed, hist, r)
+    kw = dict(min_region_num=5, max_region_num=150, use_flow=False,
+              win_hist=whist, win_cnt=wcnt)
+    if seed >= 8:
+        constr = np.full(hist.shape[0], -1, np.int32)
+        constr[:40] = np.arange(40) // 8
+        kw["constraints"] = [constr, constr]
+    fh = np.zeros((0, hist.shape[0], 16), np.float32)
+    fc = np.zeros((0, hist.shape[0]), np.float32)
+    want = jagg.agglomerate(hist, fh, fc, sizes, edges, r, **kw)
+    got = tagg.agglomerate(hist, fh, fc, sizes, edges, r, device="cpu", **kw)
+    plain = tagg.agglomerate(hist, fh, fc, sizes, edges, r, device="cpu",
+                             **{k: v for k, v in kw.items()
+                                if not k.startswith("win")})
+    assert len(want) >= 1 and len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    if seed < 8:    # the windows changed the hierarchy
+        assert any(not np.array_equal(a, b) for a, b in zip(got, plain))
+
+
+def test_agglomerate_windowed_phases_match_jax():
+    """Over 2048 regions the level loop runs in shrinking phases: the
+    window tables are gathered into each compacted table as JAX does."""
+    hist, sizes, edges, r = _hist_problem(15, r=2100, bins=40)
+    whist, wcnt = _window_tables(15, hist, r, nw=3)
+    kw = dict(min_region_num=20, max_region_num=1500, use_flow=False,
+              win_hist=whist, win_cnt=wcnt)
+    fh = np.zeros((0, hist.shape[0], 16), np.float32)
+    fc = np.zeros((0, hist.shape[0]), np.float32)
+    assert len(tagg._phase_specs(hist.shape[0], len(edges), 1024, 256,
+                                 16)) > 1
+    want = jagg.agglomerate(hist, fh, fc, sizes, edges, r, **kw)
+    got = tagg.agglomerate(hist, fh, fc, sizes, edges, r, device="cpu", **kw)
+    assert len(want) >= 3 and len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_accumulate_windowed_matches_jax_and_native():
+    """Per-window gain-calibrated histograms and counts: the torch path
+    equals JAX's device path, and within 1e-4 of the native accumulator
+    the region stage takes first (its own float order)."""
+    from video_segment_tpu_torch import native
+    jregion = _jregion()
+    rng = np.random.default_rng(0)
+    t, h, w, rcap, wcap, lb, cb = 4, 6, 8, 8, 3, 4, 5
+    labels = rng.integers(0, rcap - 1, (t, h, w)).astype(np.int32)
+    lab_u8 = rng.integers(0, 256, (t, h, w, 3)).astype(np.uint8)
+    gains = rng.uniform(0.8, 1.2, (t, 3)).astype(np.float32)
+    win_slot = np.array([0, 0, 1, 2], np.int32)
+    want = jregion._accumulate_windowed(
+        jnp.asarray(labels), jnp.asarray(lab_u8), jnp.asarray(gains),
+        jnp.asarray(win_slot), rcap, wcap, lb, cb)
+    got = tregion._accumulate_windowed(
+        torch.from_numpy(labels), torch.from_numpy(lab_u8),
+        torch.from_numpy(gains), torch.from_numpy(win_slot), rcap, wcap, lb,
+        cb)
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+    nat = native.accumulate_lab_hist(labels, lab_u8, rcap, lb, cb,
+                                     gains=gains, win_slot=win_slot,
+                                     wcap=wcap)
+    assert (got[0].numpy() == 255 * 0).sum() > 0 and (lab_u8 > 230).any()
+    np.testing.assert_allclose(got[0].numpy(), nat, rtol=0, atol=1e-4)
+
+
+def _windowed_frames():
+    """The JAX package's windowed-appearance clip (tests/
+    test_windowed_appearance.py), 12 frames 24x20."""
+    frames = []
+    for i in range(12):
+        img = np.full((20, 24, 3), 60, np.uint8)
+        img[:, :12] = (200, 80, 40)
+        img[(4 + i // 2) % 12:(12 + i // 2) % 20, 14:20] = (40, 200, 120)
+        img[:, :, 0] = np.clip(img[:, :, 0].astype(np.int32) + 6 * i,
+                               0, 255).astype(np.uint8)
+        frames.append(img)
+    return frames
+
+
+def _windowed_run(pkg, frames, monkeypatch):
+    """Dense + windowed region stage of `pkg`, recording every closed
+    chunk's window tables."""
+    if pkg == "jax":
+        from video_segment_tpu.core import dense as mdense
+        mregion = _jregion()
+        dopt, ropt = DenseSegmentationOptions, RegionSegmentationOptions
+        kw = {}
+    else:
+        from video_segment_tpu_torch.core import dense as mdense
+        from video_segment_tpu_torch.core import options as topts
+        mregion = tregion
+        dopt, ropt = (topts.DenseSegmentationOptions,
+                      topts.RegionSegmentationOptions)
+        kw = dict(device="cpu")
+    chunks = []
+    orig = mregion.RegionSegmentation._accumulate_chunk
+
+    def recording(self, chunk):
+        orig(self, chunk)
+        chunks.append(chunk)
+
+    monkeypatch.setattr(mregion.RegionSegmentation, "_accumulate_chunk",
+                        recording)
+    ds = mdense.DenseSegmentation(
+        dopt(chunk_size=4, presmoothing="gaussian",
+             frac_min_region_size=0.1, preseg_mode="felz"), 24, 20, **kw)
+    rs = mregion.RegionSegmentation(
+        ropt(chunk_set_size=2, chunk_set_overlap=1, min_region_num=2,
+             max_region_num=30, use_flow=False, appearance_window_size=4),
+        24, 20, **kw)
+    out = []
+    for i, fr in enumerate(frames):
+        rs.add_frame(i, fr)
+        out += rs.process_frames(False, ds.process_frame(False, fr))
+    out += rs.process_frames(True, ds.process_frame(True))
+    return out, chunks
+
+
+def test_windowed_region_stage_matches_jax(monkeypatch):
+    """The JAX package's windowed pipeline case (window 4, frames drifting
+    in brightness so the gains move), both packages end to end with cv2's
+    Lab in the port (F6): every chunk's window histograms within 1e-4 and
+    counts exact, every emitted frame's RLE and hierarchy exact."""
+    _cv2_lab(monkeypatch)
+    frames = _windowed_frames()
+    want, wchunks = _windowed_run("jax", frames, monkeypatch)
+    got, tchunks = _windowed_run("port", frames, monkeypatch)
+    assert len(tchunks) == len(wchunks) >= 3
+    for a, b in zip(tchunks, wchunks):
+        np.testing.assert_array_equal(a.win_ids, b.win_ids)
+        np.testing.assert_array_equal(a.win_cnt, b.win_cnt)
+        np.testing.assert_allclose(a.win_hist, b.win_hist, rtol=0,
+                                   atol=1e-4)
+        assert a.win_hist.sum() > 0
+    from test_torch_dense import assert_frames_equal
+    assert_frames_equal(got, want)
+    assert [sf.frame_index for sf in got] == list(range(12))
+    hier = [(sf.hierarchy, wf.hierarchy) for sf, wf in zip(got, want)
+            if sf.hierarchy is not None]
+    assert len(hier) >= 2
+    for hg, hw in hier:
+        assert len(hg) == len(hw)
+        for lg, lw in zip(hg, hw):
+            for f in ("ids", "sizes", "neighbor_pairs", "parent_ids"):
+                np.testing.assert_array_equal(getattr(lg, f), getattr(lw, f),
+                                              err_msg=f)
+
+
+def test_compact_phase_keys_past_int32():
+    """R8 (ROADMAP.md Queue 3): compacting a set of more than 262144
+    regions into a 262144-slot table, the edge dedup key lo * cap + hi
+    passes 2^31 (the JAX package's int32 key wraps).  The port's int64 key
+    keeps every edge: the compacted list equals a NumPy dedup."""
+    rng = np.random.default_rng(21)
+    old_cap, new_cap, n_act = 1 << 19, 1 << 18, 10000
+    live = np.sort(rng.choice(old_cap, n_act, replace=False))
+    sizes = np.zeros(old_cap, np.float32)
+    sizes[live] = 1.0
+    e = live[rng.integers(0, n_act, (30000, 2))].astype(np.int32)
+    rank = np.full(old_cap, -1, np.int64)
+    rank[live] = np.arange(n_act)
+    lo = np.minimum(rank[e[:, 0]], rank[e[:, 1]])
+    hi = np.maximum(rank[e[:, 0]], rank[e[:, 1]])
+    keep = lo != hi
+    want = np.unique(lo[keep] * new_cap + hi[keep])
+    assert want.max() > 2 ** 31
+    z = torch.zeros
+    state = tagg.AggloState(
+        torch.arange(old_cap, dtype=torch.int32), z((old_cap, 1)),
+        z((0, old_cap, 16)), z((0, old_cap)), torch.from_numpy(sizes),
+        z((0, old_cap, 1)), z((0, old_cap)))
+    slots = torch.arange(old_cap, dtype=torch.int32)
+    _, _, _, edges, evalid = tagg._compact_phase(
+        state, slots, slots, torch.from_numpy(e),
+        torch.ones(len(e), dtype=torch.bool), new_cap, 1 << 15)
+    got = edges[evalid].numpy().astype(np.int64)
+    assert edges.dtype == torch.int32 and int(evalid.sum()) == len(want)
+    np.testing.assert_array_equal(got[:, 0] * new_cap + got[:, 1], want)

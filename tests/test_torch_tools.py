@@ -488,15 +488,42 @@ def test_seg_tree_rounds_per_level_tuple_matches_jax(long_video, tmp_path,
     ("--solver_param", "edge_table=0", "v1 pixel solver"),
     ("--region_param", "save_descriptors=1", "save_descriptors"),
     ("--region_param", "appearance_window_size=4", "windowed appearance")])
-def test_seg_tree_refused_knob_raises(tiny_video, tmp_path, flag, value,
-                                      message):
-    """A knob the port does not run is refused with the port's own error
-    (a non-zero exit of the CLI); no output is opened."""
-    video = stage(tmp_path, "refused", tiny_video)
-    with pytest.raises(NotImplementedError, match=message):
-        seg_tree.main(["--input_file", video, "--device", "cpu", "--no-flow",
-                       flag, value, *COMMON])
-    assert not os.path.exists(video + ".pb")
+def test_seg_tree_refused_knob_raises(tiny_video, tmp_path, monkeypatch,
+                                      flag, value, message):
+    """The off-default solver and region knobs through the CLI flags.  The
+    one knob the port does not run, the v1 pixel solver, is refused with
+    the port's own error (a non-zero exit of the CLI) and no output is
+    opened.  Every other knob runs: the port's .pb equals the JAX
+    seg_tree's byte for byte (felz pinned, and cv2's Lab in the port's
+    region stage, ROADMAP.md Queue 3, F6); with save_descriptors every
+    region of a hierarchy frame carries a RegionFeatures record."""
+    if value == "edge_table=0":
+        video = stage(tmp_path, "refused", tiny_video)
+        with pytest.raises(NotImplementedError, match=message):
+            seg_tree.main(["--input_file", video, "--device", "cpu",
+                           "--no-flow", flag, value, *COMMON])
+        assert not os.path.exists(video + ".pb")
+        return
+    from video_segment_tpu_torch.core import region as tregion
+    import cv2
+    pin_preseg(monkeypatch, "felz")
+    monkeypatch.setattr(tregion, "bgr_to_lab_u8",
+                        lambda im: cv2.cvtColor(im, cv2.COLOR_BGR2Lab))
+    flags = ["--no-flow", flag, value]
+    want = read_bytes(run_jax(stage(tmp_path, "jax", tiny_video), *flags))
+    path = run_port(stage(tmp_path, "port", tiny_video), *flags)
+    assert read_bytes(path) == want
+    if value == "save_descriptors=1":
+        n_hier = 0
+        for _, payload in pb_frames(path):
+            desc = proto.SegmentationDesc()
+            desc.ParseFromString(payload)
+            if len(desc.hierarchy):
+                n_hier += 1
+                assert len(desc.features) == len(desc.region) > 0
+                assert [f.id for f in desc.features] == \
+                    [r.id for r in desc.region]
+        assert n_hier > 0
 
 
 # -- --device --------------------------------------------------------------

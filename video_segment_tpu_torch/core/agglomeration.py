@@ -6,10 +6,11 @@ appearance distances scaled by the size penalizer, counterpart-constraint
 forcing, and static phases of shrinking table size with per-subround
 re-evaluation in the small phases.  The JAX program's `while_loop` /
 `fori_loop` levels become Python loops (one host sync per subround).
-Edge weights combine the appearance chi-square with the per-frame flow
-chi-square (`edge_flow_distance`) when flow tables are given and
-`use_flow` is set; per-frame flow histograms and counts merge with the
-other statistics.
+Edge weights combine the appearance chi-square (of the region histograms,
+or of the per-window histograms under windowed appearance,
+`edge_color_distance_windowed`) with the per-frame flow chi-square
+(`edge_flow_distance`) when flow tables are given and `use_flow` is set;
+per-frame flow and per-window tables merge with the other statistics.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from video_segment_tpu_torch.core.oversegmentation import (I32MAX, seg_max,
 from video_segment_tpu_torch.ops import cc, histograms as hops
 
 _DQ = 1 << 20  # distance quantization for integer keys
+_I64MAX = 2 ** 63 - 1
 
 
 class AggloState(NamedTuple):
@@ -33,6 +35,8 @@ class AggloState(NamedTuple):
     flow_hist: torch.Tensor  # (T,C,FB) per-frame flow histograms
     flow_cnt: torch.Tensor   # (T,C) per-frame flow vector counts
     sizes: torch.Tensor      # (C,) f32
+    win_hist: torch.Tensor   # (NW,C,B) windowed appearance (NW=0: unused)
+    win_cnt: torch.Tensor    # (NW,C) window sample counts
 
 
 def _arange(n, like):
@@ -49,7 +53,13 @@ def _eval_distances(state: AggloState, edges, evalid, inv_median, use_flow,
     ra = state.label.index_select(0, edges[:, 0])
     rb = state.label.index_select(0, edges[:, 1])
     pairs = torch.stack([ra, rb], dim=1)
-    color_d = hops.edge_color_distance(state.hist, pairs)
+    if state.win_hist.shape[0] > 0:
+        # WindowedAppearanceDescriptor replaces the single-histogram
+        # appearance distance (region_descriptor.cpp:207-276).
+        color_d = hops.edge_color_distance_windowed(state.win_hist,
+                                                    state.win_cnt, pairs)
+    else:
+        color_d = hops.edge_color_distance(state.hist, pairs)
     # Without flow tables, or with flow disabled, the JAX package combines
     # a zero flow distance, which leaves the appearance term unchanged.
     use_flow = use_flow and state.flow_hist.shape[0] > 0
@@ -108,11 +118,13 @@ def _reaggregate(state: AggloState) -> AggloState:
     """Re-aggregate every statistics table onto current roots."""
     r = state.label.shape[0]
     seg = state.label
-    return AggloState(
-        state.label, seg_sum(state.hist, seg, r),
-        torch.zeros_like(state.flow_hist).index_add_(1, seg, state.flow_hist),
-        torch.zeros_like(state.flow_cnt).index_add_(1, seg, state.flow_cnt),
-        seg_sum(state.sizes, seg, r))
+    def by_root(x):
+        return torch.zeros_like(x).index_add_(1, seg, x)
+
+    return AggloState(state.label, seg_sum(state.hist, seg, r),
+                      by_root(state.flow_hist), by_root(state.flow_cnt),
+                      seg_sum(state.sizes, seg, r), by_root(state.win_hist),
+                      by_root(state.win_cnt))
 
 
 def _force_constraints(label, constr, b2c):
@@ -227,7 +239,9 @@ def _compact_phase(state: AggloState, b2c, c2o, edges, evalid,
         state.hist.index_select(0, inv) * vf[:, None],
         state.flow_hist.index_select(1, inv) * vf[None, :, None],
         state.flow_cnt.index_select(1, inv) * vf[None, :],
-        state.sizes.index_select(0, inv) * vf)
+        state.sizes.index_select(0, inv) * vf,
+        state.win_hist.index_select(1, inv) * vf[None, :, None],
+        state.win_cnt.index_select(1, inv) * vf[None, :])
     b2c_new = cidx.index_select(0, root.index_select(0, b2c))
     c2o_new = c2o.index_select(0, inv)
 
@@ -236,15 +250,17 @@ def _compact_phase(state: AggloState, b2c, c2o, edges, evalid,
     lo = torch.minimum(ea, eb)
     hi = torch.maximum(ea, eb)
     valid = evalid & (lo != hi)
-    # int32 key arithmetic as in the JAX package.
-    key = torch.where(valid, lo * new_cap + hi, I32MAX)
+    # The JAX package forms this key in int32, which wraps once lo * new_cap
+    # passes 2^31 (sets of more than 262144 regions, ROADMAP.md Queue 3,
+    # R8); the port keys in int64, which orders every smaller set alike.
+    key = torch.where(valid, lo.long() * new_cap + hi, _I64MAX)
     key_s = torch.sort(key).values
     first = torch.ones_like(key_s, dtype=torch.bool)
     first[1:] = key_s[1:] != key_s[:-1]
-    key_u = torch.sort(torch.where(first, key_s, I32MAX)).values[:new_ecap]
-    evalid_new = key_u < I32MAX
-    ea2 = torch.where(evalid_new, key_u // new_cap, 0)
-    eb2 = torch.where(evalid_new, key_u % new_cap, 0)
+    key_u = torch.sort(torch.where(first, key_s, _I64MAX)).values[:new_ecap]
+    evalid_new = key_u < _I64MAX
+    ea2 = torch.where(evalid_new, key_u // new_cap, 0).to(torch.int32)
+    eb2 = torch.where(evalid_new, key_u % new_cap, 0).to(torch.int32)
     return (new_state, b2c_new, c2o_new, torch.stack([ea2, eb2], dim=1),
             evalid_new)
 
@@ -311,20 +327,21 @@ def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
                 device: str | torch.device = "cuda"):
     """Run the full level loop on `device`; returns a list of per-level
     (R,) root arrays (numpy).  Arguments as in the JAX `agglomerate`
-    (flow_hist (T,R,FB), flow_cnt (T,R); T=0 without flow); windowed
-    appearance raises NotImplementedError."""
+    (flow_hist (T,R,FB), flow_cnt (T,R); T=0 without flow; windowed
+    appearance tables win_hist (NW,R,B) and win_cnt (NW,R), whose distance
+    replaces the single histogram's when NW > 0)."""
     dev = devmod.resolve(device)
-    if win_hist is not None and np.asarray(win_hist).shape[0] > 0:
-        raise NotImplementedError("windowed appearance histograms are not "
-                                  "ported yet (ROADMAP.md, Queue 1: the knobs that "
-                                  "are off by default)")
     r = hist.shape[0]
-    state = AggloState(
-        _arange(r, torch.empty(0, device=dev)),
-        torch.as_tensor(np.asarray(hist, np.float32), device=dev),
-        torch.as_tensor(np.asarray(flow_hist, np.float32), device=dev),
-        torch.as_tensor(np.asarray(flow_cnt, np.float32), device=dev),
-        torch.as_tensor(np.asarray(sizes, np.float32), device=dev))
+    if win_hist is None:
+        win_hist = np.zeros((0, r, hist.shape[1]), np.float32)
+        win_cnt = np.zeros((0, r), np.float32)
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    state = AggloState(_arange(r, torch.empty(0, device=dev)), put(hist),
+                       put(flow_hist), put(flow_cnt), put(sizes),
+                       put(win_hist), put(win_cnt))
     edges = np.asarray(edges, np.int32)
     if edges.shape[0] == 0:
         edges = np.zeros((1, 2), np.int32)  # inert self-edge

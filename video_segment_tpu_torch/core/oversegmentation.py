@@ -17,9 +17,11 @@ as masked global rounds (`st_kernel=False`).  The two admit the same
 merges; they differ only in the float order of the region statistics, in
 seeds beyond `st_slots` (unmerged in K3) and in a table recompaction that
 falls inside the gated levels (the masked rounds then see the shrunk
-table's top-K edges).  Two-stage solves, the gradient trait and
-non-default descriptors raise NotImplementedError; the v1 pixel solver
-(`edge_table=False`) is not ported.
+table's top-K edges).  Every off-default knob runs: the variance
+descriptor, the gradient trait (`ops/pixel_distance`) and the two-stage
+solve's spatial pre-pass, each with the masked rounds for gated levels as
+in the JAX package.  The v1 pixel solver (`edge_table=False`) is not
+ported and raises.
 
 JAX's segment reductions become `scatter_reduce_` / `index_add_` into
 tensors pre-filled with the same empty-segment identities (INT32_MAX /
@@ -37,6 +39,8 @@ import numpy as np
 import torch
 
 from video_segment_tpu_torch.ops import cc
+from video_segment_tpu_torch.ops import pixel_distance as pd
+from video_segment_tpu_torch.ops.histograms import _fma
 from video_segment_tpu_torch.ops.tile_felz import sqrt32
 
 NUM_BUCKETS = 2048
@@ -49,10 +53,6 @@ TEMPORAL_DIRS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
 MODE_MERGE = 0
 MODE_MIN_SIZE = 1
-
-_ROADMAP = ("not ported yet (ROADMAP.md, Queue 1: the knobs that are "
-            "off by default)")
-
 
 class OversegParams(NamedTuple):
     """Solver parameters; fields and defaults identical to the JAX
@@ -129,6 +129,11 @@ class SolverState(NamedTuple):
     constr: torch.Tensor  # (N,)  int32: compact constraint id, -1 free
     fin: torch.Tensor     # (N,)  int32: finalize level (NUM_BUCKETS open)
     frozen: torch.Tensor  # (N,)  bool: virtual-node role
+    # (N,3) f32 color square sums under the variance descriptor, else None
+    # (the JAX package carries zeros there).
+    sqsum: torch.Tensor | None = None
+    # (N,2) f32 sign-normalized gradient sums under the gradient trait.
+    gsum: torch.Tensor | None = None
 
 
 class OversegResult(NamedTuple):
@@ -234,13 +239,17 @@ class _RawDir(NamedTuple):
     nb_label: torch.Tensor
 
 
-def _fold_dirs_raw(feats, label3, metric, fold_fn, carry, flow=None):
+def _fold_dirs_raw(feats, label3, metric, fold_fn, carry, flow=None,
+                   pair_dist=None):
     """Fold `fold_fn(carry, _RawDir) -> carry` over every extraction
     direction: the shift-expressible ones as halo-padded views of the
-    (T,H,W,3) color volume (the bucket source), then, with `flow`
-    ((T-1,H,W,2) backward flow of frames 1..T-1), the nine flow-displaced
-    backward directions, in TEMPORAL_DIRS order."""
+    (T,H,W,C) feature volume, then, with `flow` ((T-1,H,W,2) backward flow
+    of frames 1..T-1), the nine flow-displaced backward directions, in
+    TEMPORAL_DIRS order.  Buckets come from `pair_dist(own, neighbor)`
+    (`_pair_dist_fn`; default the color distance of channels 0:3)."""
     t, h, w, _ = feats.shape
+    if pair_dist is None:
+        pair_dist = lambda a, b: _dist(a, b, metric)  # noqa: E731
     dev = feats.device
     ys = torch.arange(h, device=dev)[None, :, None]
     xs = torch.arange(w, device=dev)[None, None, :]
@@ -253,15 +262,15 @@ def _fold_dirs_raw(feats, label3, metric, fold_fn, carry, flow=None):
         labn = lpad[1 + dt:1 + dt + t, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
         valid = ((ts + dt >= 0) & (ts + dt < t) & (ys + dy >= 0)
                  & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w))
-        bucket = _bucketize(_dist(feats, fn, metric))
+        bucket = _bucketize(pair_dist(feats, fn))
         carry = fold_fn(carry, _RawDir(valid=valid, bucket=bucket,
                                        nb_label=labn))
     if flow is None or t == 1:
         return carry
-    return _fold_flow_dirs(feats, label3, flow, metric, fold_fn, carry)
+    return _fold_flow_dirs(feats, label3, flow, pair_dist, fold_fn, carry)
 
 
-def _fold_flow_dirs(feats, label3, flow, metric, fold_fn, carry):
+def _fold_flow_dirs(feats, label3, flow, pair_dist, fold_fn, carry):
     """Flow-displaced backward edges: voxel (t,y,x), t>=1, anchors at
     clamp(trunc((y,x)+flow[t-1])) in frame t-1 (C truncation toward zero:
     float32 sums, then a truncating int32 cast).  The nine neighbours are
@@ -297,7 +306,7 @@ def _fold_flow_dirs(feats, label3, flow, metric, fold_fn, carry):
         ny = py + dy
         nx = px + dx
         valid2 = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
-        bucket = _bucketize(_dist(feats[1:], fn_all[k], metric))
+        bucket = _bucketize(pair_dist(feats[1:], fn_all[k]))
         carry = fold_fn(carry, _RawDir(valid=pad_first(valid2, False),
                                        bucket=pad_first(bucket),
                                        nb_label=pad_first(labn_all[k])))
@@ -309,6 +318,77 @@ def _desc_distance(own_mean, nb_mean, bucket, p: OversegParams):
     w_eff = bucket.to(torch.float32) * (1.0 / NUM_BUCKETS)
     force = (w_eff < p.force_merge_weight) & (d < 0.2)
     return torch.where(force, torch.zeros_like(d), d)
+
+
+def _variance(ts: SolverState, mean):
+    """Per-slot color variance sqsum/size - mean^2 (one fused multiply-add
+    in the JAX package's compiled code)."""
+    return _fma(-mean, mean,
+                ts.sqsum / torch.clamp(ts.size, min=1.0)[:, None])
+
+
+def _trait_distance(mean_a, var_a, mean_b, var_b, bucket, p: OversegParams):
+    """Descriptor-trait merge distance: color_mean is `_desc_distance`;
+    color_mean_variance the z-score of the mean difference over the pooled
+    per-channel variance, scaled by 0.2 and clamped to 1
+    (pixel_distance.h:571-587, no force-merge shortcut)."""
+    if p.descriptor == "color_mean_variance":
+        mv = torch.clamp(0.5 * (var_a + var_b), min=1e-4)
+        diff = mean_a - mean_b
+        q = diff * diff / mv
+        d = sqrt32(q[..., 0] + q[..., 1] + q[..., 2]) * 0.2
+        return torch.clamp(d, max=1.0)
+    return _desc_distance(mean_a, mean_b, bucket, p)
+
+
+def _thresholds(p: OversegParams):
+    """Effective (merge, split) thresholds: with the gradient trait the
+    per-trait thresholds aggregate like the distances
+    (AggregatedDescriptorTraits, pixel_distance.h:762-772)."""
+    if not p.gradient_trait:
+        return p.merge_threshold, p.split_threshold
+    return (pd.aggregate_scalar(p.merge_threshold,
+                                pd.GRADIENT_MERGE_THRESHOLD, p.aggregator,
+                                p.linear_weight),
+            pd.aggregate_scalar(p.split_threshold,
+                                pd.GRADIENT_SPLIT_THRESHOLD, p.aggregator,
+                                p.linear_weight))
+
+
+def _pair_dist_fn(p: OversegParams, nf: int):
+    """Pixel-edge distance over packed (..., nf) features (color in
+    channels 0:3, gradient in 3:5 when present): the bucket source of edge
+    extraction, aggregated per AggregatedDistance."""
+    if not p.gradient_trait or nf < 5:
+        return lambda a, b: _dist(a[..., 0:3], b[..., 0:3], p.metric)
+
+    def fn(a, b):
+        dc = _dist(a[..., 0:3], b[..., 0:3], p.metric)
+        dg = pd.gradient_distance(a[..., 3:5], b[..., 3:5], p.metric)
+        return pd.aggregate(dc, dg, p.aggregator, p.linear_weight)
+
+    return fn
+
+
+def _merge_distance(ts: SolverState, own, a2, bucket, p: OversegParams):
+    """Merge-gate distance between the regions at slots `own` and `a2`
+    (index tensors that broadcast, e.g. (nseg,1) roots against (nseg,K)
+    partner roots): the descriptor trait, aggregated with the
+    gradient-mean distance under the gradient trait."""
+    size = torch.clamp(ts.size, min=1.0)[:, None]
+    mean = ts.csum / size
+    var_a = var_b = None
+    if p.descriptor == "color_mean_variance":
+        var = _variance(ts, mean)
+        var_a, var_b = _take(var, own), _take(var, a2)
+    dd = _trait_distance(_take(mean, own), var_a, _take(mean, a2), var_b,
+                         bucket, p)
+    if p.gradient_trait:
+        gmean = ts.gsum / size
+        dd = pd.aggregate(dd, pd.gradient_trait_distance(
+            _take(gmean, own), _take(gmean, a2)), p.aggregator,
+            p.linear_weight)
+    return dd
 
 
 def _pair_gate(p: OversegParams, is_min_size: bool):
@@ -347,16 +427,35 @@ def _apply_merge(state: SolverState, partner, n, up=None, pair_gate=None):
         hook = hook & ~_take(hook, tgt)
     parent = torch.where(hook, partner, slots)
     root = cc.pointer_jump(parent)
-    cols = torch.cat([state.csum, state.size[:, None],
-                      state.frozen.to(torch.float32)[:, None]], dim=1)
-    stats = seg_sum(cols, root, n)
+    stats = _seg_sum_stats(state, root, n,
+                           state.frozen.to(torch.float32), state.csum,
+                           state.size)
     constr = seg_max(state.constr, root, n)
     fin = seg_min(state.fin, root, n)
     label = _take(root, state.label)
     moved = (root != slots).sum()
     return (SolverState(label, stats[:, 0:3], stats[:, 3], constr, fin,
-                        stats[:, 4] > 0),
+                        stats[:, 4] > 0, *_extra_stats(state, stats)),
             moved, have.sum())
+
+
+def _seg_sum_stats(state: SolverState, seg, n, frozen_f, csum, size):
+    """One segment sum of [csum, size, frozen, sqsum?, gsum?] by `seg`
+    (the optional columns where the state carries them)."""
+    cols = [csum, size[:, None], frozen_f[:, None]]
+    cols += [x for x in (state.sqsum, state.gsum) if x is not None]
+    return seg_sum(torch.cat(cols, dim=1), seg, n)
+
+
+def _extra_stats(state: SolverState, stats):
+    """(sqsum, gsum) columns of a `_seg_sum_stats` result."""
+    off = 5
+    sq = g = None
+    if state.sqsum is not None:
+        sq, off = stats[:, off:off + 3], off + 3
+    if state.gsum is not None:
+        g = stats[:, off:off + 2]
+    return sq, g
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +480,9 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
                    orig_slot=None, head_planes: int = 0, flow=None,
                    global_base: int = 0, pack_domain: int | None = None):
     """One-time region-adjacency extraction (see the JAX docstring);
-    `flow` displaces the temporal directions (`_fold_dirs_raw`).
+    `flow` displaces the temporal directions (`_fold_dirs_raw`); `vol`
+    carries the gradient channels 3:5 under the gradient trait, which the
+    pair distance aggregates into the buckets.
     `global_base` offsets the packed partner ids and `pack_domain` sizes
     the key layout: a band of a banded solve extracts with band-local own
     slots but partners addressed in, and packed for, the global table.
@@ -405,6 +506,7 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
     d_cols = 2 * n_dirs
     use_tile = p.extract_tile if p.extract_tile is not None else True
     tile_path = use_tile and init_label is not None and orig_slot is not None
+    pair_dist = _pair_dist_fn(p, vol.shape[-1])
 
     def packed(d: _RawDir):
         ok = (d.valid & (d.nb_label != memb3) & (memb3 != sink)
@@ -429,7 +531,7 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
                                       memb_flat[:head_n], nseg)
             return k + 1
 
-        _fold_dirs_raw(vol, memb3, p.metric, fold, 0, flow)
+        _fold_dirs_raw(vol, memb3, p.metric, fold, 0, flow, pair_dist)
         if head_planes:
             # Head pixels' labels are not tile-local: their reduction is
             # the scatter above, never the tile pass.
@@ -455,7 +557,7 @@ def _extract_edges(memb3, vol, nseg, sink, p, init_label=None,
             tab[k] = seg_min(packed(d).reshape(-1), memb_flat, nseg)
             return k + 1
 
-        _fold_dirs_raw(vol, memb3, p.metric, fold, 0, flow)
+        _fold_dirs_raw(vol, memb3, p.metric, fold, 0, flow, pair_dist)
 
     # Reverse view: column k's entry at slot a, packed (bucket, partner b),
     # re-scatters as (bucket, a) onto slot b.  Partner ids are clamped into
@@ -505,24 +607,21 @@ def _table_round(ts: SolverState, ptn, pbk, theta, up, mode, nseg, sink,
     """
     root = ts.label
     bits, bshift = _pack_spec(nseg)
-    mean = ts.csum / torch.clamp(ts.size, min=1.0)[:, None]
 
     own = root
-    own_mean = _take(mean, own)
     own_size = _take(ts.size, own)
     own_constr = _take(ts.constr, own)
     own_fin = _take(ts.fin, own)
 
     ptn_c = torch.clamp(ptn, max=nseg - 1)
     a2 = _take(root, ptn_c)                      # (nseg,K) partner roots
-    nb_mean = _take(mean, a2)
     nb_constr = _take(ts.constr, a2)
     nb_fin = _take(ts.fin, a2)
 
     live = ((ptn < I32MAX) & (a2 != own[:, None]) & (own[:, None] != sink)
             & (a2 != sink))
-    dd = _desc_distance(own_mean[:, None, :], nb_mean, pbk, p)
-    mthr, sthr = p.merge_threshold, p.split_threshold
+    dd = _merge_distance(ts, own[:, None], a2, pbk, p)
+    mthr, sthr = _thresholds(p)
 
     either_free = (own_constr[:, None] < 0) | (nb_constr < 0)
     regular = (either_free & (pbk < own_fin[:, None]) & (pbk < nb_fin)
@@ -555,9 +654,7 @@ def _table_level_end(ts: SolverState, tab, theta, nseg, sink,
     """Level-end finalization / unconstraining over the full edge table."""
     root = ts.label
     bits, bshift = _pack_spec(nseg)
-    mean = ts.csum / torch.clamp(ts.size, min=1.0)[:, None]
     own = root
-    own_mean = _take(mean, own)
     own_size = _take(ts.size, own)
     own_constr = _take(ts.constr, own)
     own_fin = _take(ts.fin, own)
@@ -568,15 +665,14 @@ def _table_level_end(ts: SolverState, tab, theta, nseg, sink,
     ptn = torch.where(has, pk & ((1 << bits) - 1), 0)
     bkt = torch.where(has, (pk >> bits) << bshift, NUM_BUCKETS)
     a2 = _take(root, ptn)
-    nb_mean = _take(mean, a2)
     nb_constr = _take(ts.constr, a2)
     nb_fin = _take(ts.fin, a2)
     nb_size = _take(ts.size, a2)
 
     live = has & (a2 != own[:, None]) & (own[:, None] != sink) & (a2 != sink)
     act = live & (bkt <= theta)
-    dd = _desc_distance(own_mean[:, None, :], nb_mean, bkt, p)
-    mthr, sthr = p.merge_threshold, p.split_threshold
+    dd = _merge_distance(ts, own[:, None], a2, bkt, p)
+    mthr, sthr = _thresholds(p)
 
     either_free = (own_constr[:, None] < 0) | (nb_constr < 0)
     fail = (act & either_free & (bkt < own_fin[:, None]) & (bkt < nb_fin)
@@ -610,11 +706,12 @@ def _merge_constrained(state: SolverState, num_constraints: int, n: int,
 
     target = _take(rep, torch.clamp(state.constr, 0, num_constraints - 1))
     active = (cid < num_constraints) & (target != slots)
-    mean = state.csum / torch.clamp(state.size, min=1.0)[:, None]
     # `target` may hold rep's I32MAX identity for inactive slots; clamp the
-    # gather (JAX clamps out-of-range gathers).
-    d = _dist(mean, _take(mean, torch.clamp(target, max=n - 1)), p.metric)
-    merge = active & (state.frozen | (d <= p.split_threshold))
+    # gather (JAX clamps out-of-range gathers).  Bucket NUM_BUCKETS: no
+    # force-merge shortcut.
+    d = _merge_distance(state, slots, torch.clamp(target, max=n - 1),
+                        torch.full_like(slots, NUM_BUCKETS), p)
+    merge = active & (state.frozen | (d <= _thresholds(p)[1]))
     uncon = active & ~merge & ~state.frozen
 
     state = state._replace(constr=torch.where(uncon, -1, state.constr))
@@ -637,10 +734,14 @@ def _table_cap(params: OversegParams, n_pix: int, h: int, w: int,
 
 def _init_table(vol, init_label, constr_init, frozen_init, fin_init,
                 r_cap: int, has_constraints: bool, cell_stats=None,
-                head_planes: int = 0):
+                head_planes: int = 0, params: OversegParams | None = None):
     """Fused seed compaction: renumber self-rooted init labels into table
     slots and aggregate region statistics there (gathered from root cells
-    with `cell_stats`, except for the first `head_planes` planes).
+    with `cell_stats`, except for the first `head_planes` planes).  Under
+    the variance descriptor or the gradient trait (`params`; `vol` then
+    carries the gradient in channels 3:5) every statistic is a segment sum
+    over the pixels, with color squares and sign-normalized gradients as
+    extra columns; the cell stats are not used.
 
     Returns (table SolverState with identity labels, per-pixel membership,
     per-slot original root voxel id)."""
@@ -661,8 +762,12 @@ def _init_table(vol, init_label, constr_init, frozen_init, fin_init,
     volf = vol.reshape(n_pix, -1)
     color = volf[:, 0:3]
     ones = torch.ones((n_pix, 1), dtype=torch.float32, device=dev)
+    use_var = params is not None and params.descriptor == "color_mean_variance"
+    use_grad = (params is not None and params.gradient_trait
+                and volf.shape[1] >= 5)
+    sqsum = gsum = None
 
-    if cell_stats is not None:
+    if cell_stats is not None and not use_var and not use_grad:
         head_n = head_planes * h_ * w_
         size_c, c0, c1, c2 = (x.reshape(n_pix) for x in cell_stats)
         n_active = ok.to(torch.int32).sum()
@@ -694,9 +799,18 @@ def _init_table(vol, init_label, constr_init, frozen_init, fin_init,
             constr = torch.full((nseg,), -1, dtype=torch.int32, device=dev)
             frozen = torch.zeros(nseg, dtype=torch.bool, device=dev)
     else:
-        stats = seg_sum(torch.cat([color, ones], dim=1), memb, nseg)
+        cols = [color, ones]
+        if use_var:
+            cols.append(color * color)
+        if use_grad:
+            cols.append(pd.sign_normalize(volf[:, 3:5]))
+        stats = seg_sum(torch.cat(cols, dim=1), memb, nseg)
         csum = stats[:, 0:3]
         size = stats[:, 3]
+        if use_var:
+            sqsum = stats[:, 4:7]
+        if use_grad:
+            gsum = stats[:, 7:9] if use_var else stats[:, 4:6]
         if has_constraints:
             constr = seg_max(constr_init, memb, nseg)
             frozen = seg_max(frozen_init.to(torch.int32), memb, nseg) > 0
@@ -707,7 +821,8 @@ def _init_table(vol, init_label, constr_init, frozen_init, fin_init,
     # Sink must never merge: finalize level 0, unconstrained.
     fin[r_cap] = 0
     constr[r_cap] = -1
-    ts = SolverState(_arange(nseg, vol), csum, size, constr, fin, frozen)
+    ts = SolverState(_arange(nseg, vol), csum, size, constr, fin, frozen,
+                     sqsum, gsum)
     return ts, memb, orig_slot
 
 
@@ -715,8 +830,11 @@ def _solve_edge_table(vol, init_label, constr_init, frozen_init,
                       fin_init, params, n_pix, thetas, level_rounds,
                       has_constraints, cell_stats=None,
                       head_planes: int = 0, flow=None):
-    """Edge-table phases: table init, edge extraction, table solve."""
+    """Edge-table phases: table init, edge extraction, table solve.  The
+    gradient trait appends the luminance gradient to the volume first."""
     t, h, w, _ = vol.shape
+    if params.gradient_trait:
+        vol = torch.cat([vol, pd.gradient_features(vol)], dim=-1)
     if params.bands > 1:
         return _solve_banded(vol, flow, init_label, constr_init, frozen_init,
                              fin_init, params, thetas, level_rounds,
@@ -726,7 +844,7 @@ def _solve_edge_table(vol, init_label, constr_init, frozen_init,
     ts, memb, orig_slot = _init_table(vol, init_label, constr_init,
                                       frozen_init, fin_init, r_cap,
                                       has_constraints, cell_stats,
-                                      head_planes)
+                                      head_planes, params)
     tab = _extract_edges(memb.reshape(t, h, w), vol, nseg, r_cap, params,
                          init_label=init_label, orig_slot=orig_slot,
                          head_planes=head_planes, flow=flow)
@@ -778,13 +896,18 @@ def _recompact_table(ts, tab, o2n, fb_slot, orig_slot, new_cap: int):
         .scatter_reduce_(0, cidx.long(), torch.where(ok, slots, 0), "amax")
     valid_new = new_slots < n_active
     vf = valid_new.to(torch.float32)[:, None]
+
+    def rows(x):
+        return None if x is None else _take(x, inv) * vf
+
     ts2 = SolverState(
         label=new_slots,
-        csum=_take(ts.csum, inv) * vf,
+        csum=rows(ts.csum),
         size=_take(ts.size, inv) * vf[:, 0],
         constr=torch.where(valid_new, _take(ts.constr, inv), -1),
         fin=torch.where(valid_new, _take(ts.fin, inv), 0),
-        frozen=valid_new & _take(ts.frozen, inv))
+        frozen=valid_new & _take(ts.frozen, inv),
+        sqsum=rows(ts.sqsum), gsum=rows(ts.gsum))
 
     bits_o, bshift_o = _pack_spec(old_cap)
     bits_n, bshift_n = _pack_spec(new_cap)
@@ -826,10 +949,14 @@ def _sup_ids_hw(orig, h, w, params: OversegParams):
 def _use_st_kernel(p: OversegParams) -> bool:
     """Whether the gated levels run as K3 launches rather than masked
     global rounds.  `st_kernel=None` means the kernel on every device.
-    The kernel carries neither pair cancellation nor per-round failure
-    scans nor interleaved min-size rounds, so those knobs take the masked
-    rounds (the kernel path must equal them)."""
+    The kernel gates on the color mean alone, so the two-stage solve, the
+    variance descriptor and the gradient trait take the masked rounds (the
+    JAX package's gate); it carries neither pair cancellation nor
+    per-round failure scans nor interleaved min-size rounds, so those knobs
+    take them too (the kernel path must equal them)."""
     if p.st_levels <= 0 or p.st_kernel is False:
+        return False
+    if p.two_stage or p.descriptor != "color_mean" or p.gradient_trait:
         return False
     return not (p.pair_merge or p.fin_every_round or p.min_size_interleave)
 
@@ -940,7 +1067,7 @@ def _st_kernel_levels(ts, tab, orig_slot, shape3, params, diag):
     sink = nseg0 - 1
     ptn, pbk = _topk_edges(tab, params.edge_topk)
     st = _st_layout(ts, ptn, pbk, orig_slot, shape3, params)
-    seed_csum, seed_size = ts.csum, ts.size
+    seed_csum, seed_size, seed_ts = ts.csum, ts.size, ts
     end_tab = _end_table(tab, ptn, pbk, nseg0)
     blk_idx = (torch.arange(st.n_sup, dtype=torch.int32,
                             device=tab.device)[:, None] * st.s_cap)
@@ -953,15 +1080,15 @@ def _st_kernel_levels(ts, tab, orig_slot, shape3, params, diag):
             st.g2b >= 0, _take(new_root_g, torch.clamp(st.g2b, min=0)),
             ts.label)
         old_root = ts.label
-        cols = torch.cat([seed_csum, seed_size[:, None],
-                          _take(ts.frozen, old_root).to(torch.float32)
-                          [:, None]], dim=1)
-        stats = seg_sum(cols, new_label, nseg0)
+        stats = _seg_sum_stats(
+            seed_ts, new_label, nseg0,
+            _take(ts.frozen, old_root).to(torch.float32), seed_csum,
+            seed_size)
         ts = SolverState(new_label, stats[:, 0:3], stats[:, 3],
                          seg_max(_take(ts.constr, old_root), new_label,
                                  nseg0),
                          seg_min(_take(ts.fin, old_root), new_label, nseg0),
-                         stats[:, 4] > 0)
+                         stats[:, 4] > 0, *_extra_stats(seed_ts, stats))
         ts = _table_level_end(ts, end_tab, int(params.schedule[lvl]), nseg0,
                               sink, params)
         act = int(((ts.label == _arange(nseg0, tab)) & (ts.size > 0)).sum())
@@ -1021,6 +1148,26 @@ def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
             idle = 2 if cands == 0 else (0 if moved > 0 else idle + 1)
             i += 1
         return st, i
+
+    if params.two_stage:
+        # Spatial-only pre-pass over the whole schedule
+        # (SegmentGraphSpatially, dense_segmentation_graph.h:406-416): the
+        # spatial directions are extraction rows [0:4] (forward view) and
+        # [nd:nd+4] (reverse view); a banded table's boundary rows follow
+        # the band rows and stay out.  Its finalizations do not carry into
+        # the full pass; the sink stays blocked.
+        nd = len(SPATIAL_FWD) + (len(TEMPORAL_DIRS) if t > 1 else 0)
+        sp = len(SPATIAL_FWD)
+        tab_sp = torch.cat([tab[:sp], tab[nd:nd + sp]], dim=0)
+        ptn_s, pbk_s = _topk_edges(tab_sp, params.edge_topk)
+        for lvl in range(n_levels):
+            ts, _ = run_rounds(ts, thetas[lvl], level_rounds[lvl],
+                               MODE_MERGE, ptn_s, pbk_s, end_tab=tab_sp)
+            ts = _table_level_end(ts, tab_sp, thetas[lvl], nseg0,
+                                  nseg0 - 1, params)
+        fin = torch.full_like(ts.fin, NUM_BUCKETS)
+        fin[nseg0 - 1] = 0
+        ts = ts._replace(fin=fin)
 
     use_kernel = _use_st_kernel(params)
     lvl = 0
@@ -1105,6 +1252,7 @@ def _boundary_edges(vol, memb_g, B: int, bh: int, G: int,
     t, h, w, nf = vol.shape
     nseg_g = G + 1
     bits, bshift = _pack_spec(nseg_g)
+    pair_dist = _pair_dist_fn(params, nf)
     volr = vol.reshape(t, B, bh, w, nf)
     membr = memb_g.reshape(t, B, bh, w)
     lo_c = volr[:, :-1, -1]      # (t, B-1, w, 3): last row of band b
@@ -1119,7 +1267,7 @@ def _boundary_edges(vol, memb_g, B: int, bh: int, G: int,
             b_c = torch.roll(b_c, -dx, dims=2)
             b_m = torch.roll(b_m, -dx, dims=2)
         valid = (xs + dx >= 0) & (xs + dx < w)
-        bkt = torch.clamp(_bucketize(_dist(a_c, b_c, params.metric)),
+        bkt = torch.clamp(_bucketize(pair_dist(a_c, b_c)),
                           max=NUM_BUCKETS - 2) >> bshift
         ok = valid & (a_m != G) & (b_m != G) & (a_m != b_m)
         pk_a = torch.where(ok, (bkt << bits) | b_m, I32MAX).reshape(-1)
@@ -1201,7 +1349,7 @@ def _make_band_fn(t: int, h: int, w: int, params: OversegParams,
                     else None)
         ts_b, memb_b, orig_b = _init_table(
             vb, il, cb.reshape(-1), fb.reshape(-1), finb.reshape(-1), cap_b,
-            has_constraints, cls_flat, head_planes)
+            has_constraints, cls_flat, head_planes, params)
         tab_b = _extract_edges(
             memb_b.reshape(t, bh, w), vb, nseg_b, cap_b, params,
             init_label=il, orig_slot=orig_b, head_planes=head_planes,
@@ -1247,6 +1395,8 @@ def _solve_banded(vol, flow, init_label, constr_init, frozen_init, fin_init,
 
     def glue(rows, sink_val):
         """Per-band (nseg_b, ...) tables -> (G+1, ...) global."""
+        if rows[0] is None:
+            return None
         sink_row = torch.full((1,) + tuple(rows[0].shape[1:]), sink_val,
                               dtype=rows[0].dtype, device=dev)
         return torch.cat([r[:cap_b] for r in rows] + [sink_row])
@@ -1257,7 +1407,9 @@ def _solve_banded(vol, flow, init_label, constr_init, frozen_init, fin_init,
         size=glue([s.size for s in states], 0.0),
         constr=glue([s.constr for s in states], -1),
         fin=glue([s.fin for s in states], 0),
-        frozen=glue([s.frozen for s in states], False))
+        frozen=glue([s.frozen for s in states], False),
+        sqsum=glue([s.sqsum for s in states], 0.0),
+        gsum=glue([s.gsum for s in states], 0.0))
     orig_slot = glue(origs, 0)
     memb_g = torch.stack(membs).reshape(B, t, bh, w).permute(1, 0, 2, 3) \
         .reshape(-1)
@@ -1290,13 +1442,6 @@ def _check_scope(params: OversegParams) -> None:
             raise ValueError(f"st_levels={params.st_levels} leaves no global "
                              f"level of the {len(params.schedule)}-level "
                              "schedule")
-    if params.two_stage:
-        raise NotImplementedError(f"two_stage: {_ROADMAP}")
-    if params.gradient_trait:
-        raise NotImplementedError(f"gradient_trait: {_ROADMAP}")
-    if params.descriptor != "color_mean":
-        raise NotImplementedError(f"descriptor {params.descriptor!r}: "
-                                  f"{_ROADMAP}")
 
 
 def oversegment(vol, flow=None, constraints=None, init_label=None,

@@ -159,6 +159,48 @@ def edge_flow_distance(flow_hist: torch.Tensor, flow_cnt: torch.Tensor,
     return torch.cat(out)
 
 
+def edge_color_distance_windowed(whist: torch.Tensor, wcnt: torch.Tensor,
+                                 edges: torch.Tensor,
+                                 batch: int = 4096) -> torch.Tensor:
+    """WindowedAppearanceDescriptor distance for (E,2) region pairs over
+    (NW, R, B) per-window gain-calibrated color histograms and (NW, R)
+    sample counts: each lhs window w takes the minimum chi-square over the
+    rhs windows w-1..w+1 where both sides have samples, weighted by the
+    smaller count; the weighted mean over windows
+    (region_descriptor.cpp:207-276).  A window with no finite minimum
+    contributes nothing.  Edge batches of `batch`, as the JAX package's
+    `lax.map`."""
+    nw = whist.shape[0]
+    out = []
+    for s in range(0, edges.shape[0], batch):
+        chunk = edges[s:s + batch]
+        ha = normalize_l1(whist.index_select(1, chunk[:, 0]))  # (NW, b, B)
+        hb = normalize_l1(whist.index_select(1, chunk[:, 1]))
+        wa = wcnt.index_select(1, chunk[:, 0])                  # (NW, b)
+        wb = wcnt.index_select(1, chunk[:, 1])
+        dist_sum = torch.zeros(chunk.shape[0], dtype=whist.dtype,
+                               device=whist.device)
+        weight_sum = torch.zeros_like(dist_sum)
+        for w in range(nw):
+            best_d = torch.full_like(dist_sum, torch.inf)
+            best_w = torch.zeros_like(dist_sum)
+            for m in range(max(w - 1, 0), min(w + 2, nw)):
+                ok = (wa[w] > 0) & (wb[m] > 0)
+                d = chi_square(ha[w], hb[m])
+                take = ok & (d < best_d)
+                best_d = torch.where(take, d, best_d)
+                best_w = torch.where(take, torch.minimum(wa[w], wb[m]),
+                                     best_w)
+            valid = torch.isfinite(best_d)
+            dist_sum = dist_sum + torch.where(valid, best_d * best_w, 0.0)
+            weight_sum = weight_sum + torch.where(valid, best_w, 0.0)
+        out.append(torch.where(weight_sum > 0, dist_sum
+                               / torch.clamp(weight_sum, min=1e-12), 0.0))
+    if not out:
+        return torch.zeros(0, dtype=whist.dtype, device=whist.device)
+    return torch.cat(out)
+
+
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 a * b + c rounded once, as a fused multiply-add (the float32
     product is exact in float64; the float64 sum is rounded to float32)."""

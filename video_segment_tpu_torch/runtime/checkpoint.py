@@ -8,7 +8,8 @@ and explicit.  This module serializes it:
   global-id label planes, and the (smoothed, band-padded) frame and flow
   buffers.
 - RegionSegmentation: buffered chunk records (frames + cached descriptor
-  tables), per-level previous-set assignments, counters.
+  tables), per-level previous-set assignments, window anchors and frame
+  Lab means (windowed appearance gains), counters.
 
 Everything is saved as host NumPy / dataclasses in one pickle stream;
 device tensors of the dense buffer are downloaded on save and put back on
@@ -20,10 +21,7 @@ the caller can re-seek its video source.
 The pickle layout and the magic string are the JAX package's, so the dense
 block of a checkpoint written by either package restores in the other.
 The region block pickles this package's own record classes and restores
-only here.  Windowed appearance histograms are not ported: the two fields
-the JAX package keeps for them are written as it holds them with the
-window off (empty dicts), and a checkpoint that carries a live window is
-refused.
+only here.
 
 Unpickling runs code: restore only checkpoints this program wrote.
 """
@@ -56,26 +54,24 @@ def _dense_state(ds) -> dict:
 def _region_state(rs) -> dict:
     return {
         "features": rs._features,
-        "frame_means": {},
+        "frame_means": rs._frame_means,
         "chunks": rs._chunks,
         "open_frames": rs._open_frames,
         "set_id": rs._set_id,
         "has_flow": rs._has_flow,
-        "window_anchor": {},
+        "window_anchor": rs._window_anchor,
         "prev_assign": rs._prev_assign,
     }
 
 
 def _restore_region(rs, st) -> None:
-    if st["window_anchor"] or st["frame_means"]:
-        raise ValueError("checkpoint carries windowed appearance state "
-                         "(appearance_window_size > 0), which this package "
-                         "does not run")
     rs._features = st["features"]
+    rs._frame_means = st["frame_means"]
     rs._chunks = st["chunks"]
     rs._open_frames = st["open_frames"]
     rs._set_id = st["set_id"]
     rs._has_flow = st["has_flow"]
+    rs._window_anchor = st["window_anchor"]
     rs._prev_assign = st["prev_assign"]
 
 
