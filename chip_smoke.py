@@ -81,8 +81,15 @@ Phases (each prints one line; any failure exits non-zero):
     --region_param save_descriptors=1 (one RegionFeatures per region on
     hierarchy frames);
 26. no module of the JAX package (video_segment_tpu) and no jax was
-    imported.
-Phases 19-23 and 25's seg_tree run decode with cv2 and write with
+    imported (checked at the end, after phase 27);
+27. the v1 pixel solver (OversegParams(edge_table=False)): SegmentStream
+    over the 41-frame 272x480 clip, flow off, full hierarchy, with the
+    felz presegs at ingest (K1 41, K2 0, K3 0, K4 0) and in flood mode (K4
+    once a chunk solve, at the force-merge weight; no other kernel), the
+    flow path over 21 frames, the felz v1 dense stage card vs CPU over 5
+    frames (boundary F), and seg_tree --no-flow --solver_param
+    edge_table=0 over 21 frames (K1 21, K2 0).
+Phases 19-23, 25's and 27's seg_tree runs decode with cv2 and write with
 protobuf; where either is missing one line names it and the phases left
 out.
 Then a JSON line of per-kernel results (time, launches on the main path,
@@ -527,8 +534,8 @@ def launch_counts() -> tuple:
 def run_cli(main_fn, argv, want_counts=None) -> dict:
     """One CLI run on the card with the launch counters set to 0 just
     before it and read just after: exit code 0, every stage it built on the
-    card, K1 and K2 launched (exactly `want_counts` = (K1, K2, K4, K3)
-    where given).  Returns its printed text, wall seconds, peak memory,
+    card, and K1 and K2 launched, or exactly `want_counts` = (K1, K2, K4,
+    K3) where given.  Returns its printed text, wall seconds, peak memory,
     counts and stages."""
     reset_launches(*kernel_wrappers())
     torch.cuda.synchronize()
@@ -550,7 +557,7 @@ def run_cli(main_fn, argv, want_counts=None) -> dict:
         if st.device.type != "cuda":
             raise AssertionError(f"{argv}: {type(st).__name__} was built on "
                                  f"{st.device}")
-    if counts[0] == 0 or counts[1] == 0:
+    if want_counts is None and (counts[0] == 0 or counts[1] == 0):
         raise AssertionError(f"{argv}: launches K1/K2/K4/K3 {counts}")
     if want_counts is not None and counts != want_counts:
         raise AssertionError(f"{argv}: launches K1/K2/K4/K3 {counts}, want "
@@ -1056,6 +1063,99 @@ def knobs_phase(tmp, frames_p, frames_b, n_solves, with_cli) -> dict:
             f"--region_param appearance_window_size=10 --region_param "
             f"save_descriptors=1: {seg_tree_summary(run)}; RegionFeatures "
             f"per hierarchy frame {n_feat}, one per region")
+    return counts
+
+
+def v1_phase(tmp, frames_p, with_cli) -> dict:
+    """Phase 27: the v1 pixel solver (OversegParams(edge_table=False)) on
+    the card: the felz path (41 frames, flow off, K1 once a frame and no
+    other kernel), the flood path (K4 once a chunk solve, no other
+    kernel), the flow path over 21 frames, the felz v1 dense stage card vs
+    CPU over 5 frames (boundary F), and (with cv2 and protobuf) seg_tree
+    --no-flow --solver_param edge_table=0 over 21 frames.  Returns {path:
+    (K1, K2, K4, K3) launches}.
+
+    The flood path runs with `compact_divisor=1` (a compact table of one
+    slot a voxel).  At the default half-size table the flood at the
+    force-merge weight leaves more roots after level 0 than the table
+    holds on this clip, the overflow's voxels keep their phase-A roots,
+    and the next chunk's overlap planes then carry more regions than the
+    solver's constraint cap (a ValueError, in the JAX package too); one
+    chunk solve at the default table shows the overflow first."""
+    from video_segment_tpu_torch import api
+    from video_segment_tpu_torch.core import dense, flow, region
+    from video_segment_tpu_torch.core import oversegmentation as ov
+    dev = torch.device("cuda", 0)
+    v1 = ov.OversegParams(edge_table=False)
+    n, n_short = len(frames_p), N_SHORT_FRAMES
+    solves = expected_chunk_solves(n, 20)
+    flood = api.DenseSegmentationOptions(preseg_mode="flood")
+
+    # One flood chunk at the default compact table: the overflow.
+    ds = dense.DenseSegmentation(flood, W, H, solver_params=v1,
+                                 device="cuda")
+    for fr in frames_p[:21]:
+        ds._ingest(fr, None)
+    prep = ds._prepare_chunk(False)
+    t0 = time.monotonic()
+    res = ds._dispatch_solve(prep)
+    labels = int(torch.unique(res.label).numel())
+    log("v1", f"flood, one 21-frame chunk at compact_divisor 2: phase A "
+        f"leaves {int(res.diag[0, 2])} roots for a "
+        f"{int(res.diag[1, 0]) - 1}-slot table; {labels} distinct labels, "
+        f"{int((res.size > 0).sum())} live table regions "
+        f"({time.monotonic() - t0:.2f}s)")
+    del ds, prep, res
+
+    counts = {}
+    paths = (("felz", frames_p, api.DenseSegmentationOptions(), False,
+              (n, 0, 0, 0)),
+             ("flood", frames_p, flood, False, (0, 0, solves, 0)),
+             ("flow", frames_p[:n_short], api.DenseSegmentationOptions(),
+              True, (n_short, 0, 0, 0)))
+    for name, frames, dopts, use_flow, want in paths:
+        nf = len(frames)
+        reset_launches(*kernel_wrappers())
+        params = v1._replace(compact_divisor=1) if name == "flood" else v1
+        stream = api.SegmentStream(
+            iter(frames),
+            dense.DenseSegmentation(dopts, W, H, solver_params=params,
+                                    device="cuda"),
+            region.RegionSegmentation(
+                api.RegionSegmentationOptions(use_flow=use_flow), W, H,
+                device="cuda"),
+            flow.FlowEngine(W, H, device="cuda") if use_flow else None)
+        out, wall, peak = run_stream(stream, dev)
+        counts[name] = launch_counts()
+        sets = check_stream(out, stream, nf)
+        if counts[name] != want:
+            raise AssertionError(f"v1 {name} path launches K1/K2/K4/K3 "
+                                 f"{counts[name]}, want {want}")
+        if any(d[:, 0].max() < 2 for d in stream.solve_diag):
+            raise AssertionError(f"v1 {name}: solve diag not filled")
+        log("v1", f"{name}: {path_summary(out, stream, wall, peak, sets)}"
+            f"; launches K1/K2/K4/K3 {counts[name]}")
+
+    t0 = time.monotonic()
+    fm, n_reg, _ = dense_card_vs_cpu(frames_p[:5],
+                                     api.DenseSegmentationOptions(), v1)
+    log("v1", f"felz: 5 frames, one flush chunk (t_solve 5), card vs CPU: "
+        f"boundary F {fm:.4f} (regions {n_reg}; "
+        f"{time.monotonic() - t0:.1f}s)")
+    if fm < 0.9:
+        raise AssertionError(f"v1: card vs CPU boundary F {fm:.4f} < 0.9")
+
+    if with_cli:
+        from video_segment_tpu_torch.tools import seg_tree
+        clip = write_avi(os.path.join(tmp, "v1.avi"), frames_p[:n_short])
+        run = run_cli(seg_tree.main, [
+            "--input_file", clip, "--no-flow", "--write_to_file",
+            "--max_rate", "0", "--no-dynamic_rate", "--solver_param",
+            "edge_table=0"], (n_short, 0, 0, 0))
+        counts["seg_tree"] = run["counts"]
+        read_pb(clip + ".pb")
+        log("v1", f"seg_tree --no-flow --solver_param edge_table=0: "
+            f"{seg_tree_summary(run)}")
     return counts
 
 
@@ -1664,6 +1764,11 @@ def main() -> int:
                                   with_cli=missing is None)
         log("knobs", f"phase 25 took {time.monotonic() - t0:.1f}s")
 
+        # -- 27. the v1 pixel solver -----------------------------------------
+        t0 = time.monotonic()
+        v1_counts = v1_phase(tmp, frames_p, with_cli=missing is None)
+        log("v1", f"phase 27 took {time.monotonic() - t0:.1f}s")
+
     # -- 26. the port stands alone -----------------------------------------
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -1686,7 +1791,9 @@ def main() -> int:
              library_ms=None, launches_banded=banded_launches[0],
              launches_seg_tree=cli_counts and cli_counts[0],
              launches_fused=fused_counts[0],
-             launches_knobs={k: v[0] for k, v in knob_counts.items()}),
+             launches_knobs={k: v[0] for k, v in knob_counts.items()},
+             launches_v1=v1_counts["felz"][0],
+             launches_v1_flood=v1_counts["flood"][0]),
         dict(name="tile_reduce_min", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_extract.cu",
              replaces="video_segment_tpu/ops/tile_extract.py:102",
@@ -1696,6 +1803,8 @@ def main() -> int:
              launches_seg_tree=cli_counts and cli_counts[1],
              launches_fused=fused_counts[1],
              launches_knobs={k: v[1] for k, v in knob_counts.items()},
+             launches_v1=v1_counts["felz"][1],
+             launches_v1_flood=v1_counts["flood"][1],
              band_ms=k2_band_ms, band_plain_ms=k2_band_plain_ms,
              band_bound_ms=k2_band_bound_ms),
         dict(name="tile_presegment", route="cuda",
@@ -1704,7 +1813,9 @@ def main() -> int:
              launches=k4_launches, max_abs_err=k4_err, ms=k4_ms,
              plain_ms=k4_plain_ms, bound_ms=k4_bound_ms, bound_by=k4_by,
              library_ms=None,
-             launches_knobs={k: v[2] for k, v in knob_counts.items()}),
+             launches_knobs={k: v[2] for k, v in knob_counts.items()},
+             launches_v1=v1_counts["felz"][2],
+             launches_v1_flood=v1_counts["flood"][2]),
         dict(name="tile_table_rounds", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_table.cu",
              replaces="video_segment_tpu/ops/tile_table.py:358",
@@ -1712,7 +1823,9 @@ def main() -> int:
              plain_ms=k3_plain_ms, bound_ms=k3_bound_ms, bound_by=k3_by,
              library_ms=None,
              launches_seg_tree_supertile=cli_counts and cli_counts[3],
-             launches_knobs={k: v[3] for k, v in knob_counts.items()}),
+             launches_knobs={k: v[3] for k, v in knob_counts.items()},
+             launches_v1=v1_counts["felz"][3],
+             launches_v1_flood=v1_counts["flood"][3]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

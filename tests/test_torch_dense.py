@@ -265,7 +265,7 @@ def test_pointer_jump_and_cycles_match_jax():
             np.asarray(jcc.hook_and_resolve(jnp.asarray(p))))
 
 
-def test_scope_raises():
+def test_scope_raises(capsys):
     with pytest.raises(ValueError):
         tdense.DenseSegmentation(
             TDenseSegmentationOptions(preseg_mode="watershed"), W, H,
@@ -293,11 +293,25 @@ def test_scope_raises():
         kw = dict(device="cpu") if mod is tdense else {}
         with pytest.raises(ValueError, match="max_solve_voxels"):
             mod.DenseSegmentation(opts, W, H, **kw)
-    with pytest.raises(NotImplementedError):
-        from video_segment_tpu_torch.core import oversegmentation as tov
-        tdense.DenseSegmentation(
-            toptions(), W, H, device="cpu",
+    # The v1 pixel solver has no bands: over the voxel budget it shrinks
+    # chunk_size and says so on stderr, as the JAX package does.
+    from video_segment_tpu.core import oversegmentation as jov
+    from video_segment_tpu_torch.core import oversegmentation as tov
+    for w, h, want in ((480, 854, 18), (1920, 1080, 3), (W, H, 20)):
+        capsys.readouterr()
+        tds = tdense.DenseSegmentation(
+            TDenseSegmentationOptions(chunk_size=20), w, h, device="cpu",
             solver_params=tov.OversegParams(edge_table=False))
+        t_err = capsys.readouterr().err
+        jds = jdense.DenseSegmentation(
+            DenseSegmentationOptions(chunk_size=20), w, h,
+            solver_params=jov.OversegParams(edge_table=False))
+        j_err = capsys.readouterr().err
+        assert tds.options.chunk_size == jds.options.chunk_size == want
+        assert (tds._bands, tds._pad_rows) == (jds._bands, jds._pad_rows) \
+            == (1, 0)
+        assert t_err == j_err
+        assert ("[dense] chunk_size 20 -> " in t_err) == (want != 20)
 
 
 def _options(**kw):

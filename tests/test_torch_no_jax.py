@@ -4,7 +4,8 @@ A subprocess blocks the five (`sys.modules[name] = None` makes their
 import raise), imports the port and its kernel modules, runs a tiny
 `segment_frames(..., device="cpu")` end to end with flow off and with its
 default flow on (the port's TV-L1 engine), and runs the dense stage with
-the flood pre-segmentation (K4), with K3 supertile levels and banded
+the flood pre-segmentation (K4), with K3 supertile levels, with the v1
+pixel solver (flood presegs, and one seed a voxel) and banded
 (`solver_bands=2`), checkpoints and restores the banded stage, runs the
 off-default knobs (the variance descriptor with the gradient trait of
 `ops/pixel_distance`, the two-stage solve, windowed appearance with
@@ -75,7 +76,12 @@ SCRIPT = textwrap.dedent("""
              None),
             (DenseSegmentationOptions(chunk_size=3),
              ov.OversegParams(preseg_pair_merge=True, st_levels=2, st_h=8,
-                              st_w=128))):
+                              st_w=128)),
+            # The v1 pixel solver: flood presegs, and one seed a voxel.
+            (DenseSegmentationOptions(chunk_size=3, preseg_mode="flood"),
+             ov.OversegParams(edge_table=False)),
+            (DenseSegmentationOptions(chunk_size=3, tile_presegment=False),
+             ov.OversegParams(edge_table=False))):
         ds = dense.DenseSegmentation(opts, 128, 16, solver_params=params,
                                      device="cpu")
         res = []

@@ -135,11 +135,20 @@ def test_oversegment_knobs_match_jax(knob):
 
 
 def test_scope_raises():
-    """Only the v1 pixel solver is refused; every off-default knob of the
-    edge-table solver runs."""
+    """The v1 pixel solver refuses the variance descriptor and the
+    gradient trait with the JAX package's errors; every off-default knob
+    of the edge-table solver runs."""
     vol = torch.zeros((2, 8, 128, 3))
-    with pytest.raises(NotImplementedError, match="v1 pixel solver"):
-        tov.oversegment(vol, params=tov.OversegParams(edge_table=False))
+    for knob in (dict(descriptor="color_mean_variance"),
+                 dict(gradient_trait=True)):
+        with pytest.raises(ValueError) as want:
+            jov.oversegment(jnp.zeros((2, 8, 128, 3)),
+                            params=jov.OversegParams(edge_table=False,
+                                                     **knob))
+        with pytest.raises(ValueError) as got:
+            tov.oversegment(vol, params=tov.OversegParams(edge_table=False,
+                                                          **knob))
+        assert str(got.value) == str(want.value)
     for p in (tov.OversegParams(two_stage=True),
               tov.OversegParams(gradient_trait=True),
               tov.OversegParams(descriptor="color_mean_variance")):

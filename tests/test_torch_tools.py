@@ -490,20 +490,12 @@ def test_seg_tree_rounds_per_level_tuple_matches_jax(long_video, tmp_path,
     ("--region_param", "appearance_window_size=4", "windowed appearance")])
 def test_seg_tree_refused_knob_raises(tiny_video, tmp_path, monkeypatch,
                                       flag, value, message):
-    """The off-default solver and region knobs through the CLI flags.  The
-    one knob the port does not run, the v1 pixel solver, is refused with
-    the port's own error (a non-zero exit of the CLI) and no output is
-    opened.  Every other knob runs: the port's .pb equals the JAX
-    seg_tree's byte for byte (felz pinned, and cv2's Lab in the port's
-    region stage, ROADMAP.md Queue 3, F6); with save_descriptors every
-    region of a hierarchy frame carries a RegionFeatures record."""
-    if value == "edge_table=0":
-        video = stage(tmp_path, "refused", tiny_video)
-        with pytest.raises(NotImplementedError, match=message):
-            seg_tree.main(["--input_file", video, "--device", "cpu",
-                           "--no-flow", flag, value, *COMMON])
-        assert not os.path.exists(video + ".pb")
-        return
+    """The off-default solver and region knobs through the CLI flags,
+    the v1 pixel solver (edge_table=0) among them: every one runs, and the
+    port's .pb equals the JAX seg_tree's byte for byte (felz pinned, and
+    cv2's Lab in the port's region stage, ROADMAP.md Queue 3, F6); with
+    save_descriptors every region of a hierarchy frame carries a
+    RegionFeatures record."""
     from video_segment_tpu_torch.core import region as tregion
     import cv2
     pin_preseg(monkeypatch, "felz")

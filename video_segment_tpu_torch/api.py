@@ -59,8 +59,8 @@ class SegmentStream:
     """Iterator over the SegFrames of one `segment_frames` call, with the
     pipeline's counters: `stage_seconds` (ingest+preseg, chunk solve, host
     tail, region, and flow when a flow engine runs) and `solve_diag` (per
-    chunk solve, per schedule level: [table cap, merge rounds, live
-    regions])."""
+    chunk solve, per schedule level: [table cap (the v1 pixel solver: its
+    segment-domain size), merge rounds, live regions])."""
 
     def __init__(self, frames, dense, region, flow=None):
         self.dense = dense

@@ -2,24 +2,29 @@
 
 Port of video_segment_tpu/core/dense.py: buffers preprocessed frames,
 pre-segments them tile-locally, solves each chunk with the edge-table
-solver, assigns globally consistent region ids across chunks and emits
-per-frame RLE results plus a level-0 hierarchy per chunk (chunk streaming
-protocol: see the JAX module docstring).
+solver (or the v1 pixel solver, `OversegParams(edge_table=False)`),
+assigns globally consistent region ids across chunks and emits per-frame
+RLE results plus a level-0 hierarchy per chunk (chunk streaming protocol:
+see the JAX module docstring).
 
 Pre-segmentation: "felz" runs the tile felz pre-solve (K1) per frame at
 ingest; "flood" runs the tile flood (K4) over each padded chunk volume
 when the chunk is solved.  "auto" means "felz" on every device, so CPU
 runs execute the algorithm the card runs (the JAX package picks "flood"
-off a TPU).  With optical flow (a backward flow field per frame after the
-first, `core/flow.FlowField`s or arrays) the solver's temporal edges are
-displaced along it and connectedness advects centroids by it.  A chunk
-over `max_solve_voxels` (or `solver_bands > 1`) is solved in row bands:
-frames are edge-padded at ingest to a whole number of 8-row-aligned bands,
-the solver's pixel phases run one band at a time, and outputs are sliced
-back to the true height.  Scope: one device; the mesh solve is not
-ported.  The host tail (N4 fix result, compaction,
-connectedness, id assignment, RLE) runs the port's copies of the JAX
-package's host modules (`core/connectedness.py`, `ops/rle.py`).
+off a TPU).  The edge-table solver always pre-segments; the v1 solver
+does so only with `tile_presegment` (its flood then stops at the
+force-merge weight), and seeds one region a voxel otherwise.  With
+optical flow (a backward flow field per frame after the first,
+`core/flow.FlowField`s or arrays) the solver's temporal edges are
+displaced along it and connectedness advects centroids by it.  An
+edge-table chunk over `max_solve_voxels` (or `solver_bands > 1`) is solved
+in row bands: frames are edge-padded at ingest to a whole number of
+8-row-aligned bands, the solver's pixel phases run one band at a time, and
+outputs are sliced back to the true height; the v1 solver shrinks
+`chunk_size` to fit instead.  Scope: one device; the mesh solve is not
+ported.  The host tail (N4 fix result, compaction, connectedness, id
+assignment, RLE) runs the port's copies of the JAX package's host modules
+(`core/connectedness.py`, `ops/rle.py`).
 """
 
 from __future__ import annotations
@@ -128,14 +133,11 @@ class DenseSegmentation:
         options = dataclasses.replace(options)
         base = solver_params or ov.OversegParams()
         self.device = devmod.resolve(device)
-        if not base.edge_table:
-            raise NotImplementedError(
-                "the v1 pixel solver (edge_table=False) is not ported "
-                "(ROADMAP.md, Queue 1: deliberately left out)")
-        # Large-resolution chunks: split the solve's pixel phases into
-        # spatial row bands (bounding peak memory to one band) instead of
-        # shrinking the chunk.  Bands must align to the 8-row preseg tiles;
-        # the padded rows replicate the bottom image row.
+        # Large-resolution chunks: split the edge-table solve's pixel
+        # phases into spatial row bands (bounding peak memory to one band)
+        # instead of shrinking the chunk.  Bands must align to the 8-row
+        # preseg tiles; the padded rows replicate the bottom image row.
+        # The v1 pixel solver has no bands: it shrinks the chunk instead.
         self._bands = 1
         self._pad_rows = 0
         t_solve_full = options.chunk_size + 1
@@ -146,13 +148,14 @@ class DenseSegmentation:
             u = -(-units // forced_bands)
             self._bands = forced_bands
             self._pad_rows = forced_bands * u * 8 - frame_height
-            if chunk_vox // forced_bands > options.max_solve_voxels:
+            if (base.edge_table and chunk_vox // forced_bands
+                    > options.max_solve_voxels):
                 raise ValueError(
                     f"{forced_bands} bands leave per-band pixel phases over "
                     f"max_solve_voxels ({chunk_vox // forced_bands} > "
                     f"{options.max_solve_voxels}); use more devices or a "
                     f"smaller chunk_size")
-        elif chunk_vox > options.max_solve_voxels:
+        elif base.edge_table and chunk_vox > options.max_solve_voxels:
             unit_vox = 8 * frame_width * t_solve_full
             u_max = max(1, options.max_solve_voxels // unit_vox)
             units = -(-frame_height // 8)
@@ -164,6 +167,16 @@ class DenseSegmentation:
             print(f"[dense] solving {frame_width}x{frame_height} in "
                   f"{bands} row bands (+{self._pad_rows} pad rows)",
                   file=sys.stderr, flush=True)
+        elif not base.edge_table:
+            max_chunk = options.max_solve_voxels // max(
+                frame_width * frame_height, 1) - 1
+            if options.chunk_size > max(3, max_chunk):
+                import sys
+                print(f"[dense] chunk_size {options.chunk_size} -> "
+                      f"{max(3, max_chunk)} to respect max_solve_voxels "
+                      f"at {frame_width}x{frame_height}", file=sys.stderr,
+                      flush=True)
+                options.chunk_size = max(3, max_chunk)
         self.options = options
         self.frame_width = frame_width
         self.frame_height = frame_height
@@ -183,7 +196,11 @@ class DenseSegmentation:
             raise ValueError(f"unknown preseg_mode {options.preseg_mode!r}")
         self._preseg_mode = ("felz" if options.preseg_mode == "auto"
                              else options.preseg_mode)
-        if (self._preseg_mode == "felz" and self._params.table_divisor
+        # Pre-segment at all: always for the edge-table solver (its table
+        # must hold the live regions), by option for the v1 solver.
+        self._presegment = options.tile_presegment or self._params.edge_table
+        if (self._preseg_mode == "felz" and self._params.edge_table
+                and self._params.table_divisor
                 == ov.OversegParams().table_divisor):
             # The felz pre-solve collapses pixels enough for a tighter
             # region table; explicit caller-set divisors are respected.
@@ -238,7 +255,7 @@ class DenseSegmentation:
                     f"buffered frame {tuple(b.shape)} does not match this "
                     f"stage's padded geometry {(hp, self.frame_width, 3)}")
         self._preseg_buffer = ([self._preseg_frame(b) for b in self._buffer]
-                               if self._preseg_mode == "felz" else [])
+                               if self._felz_at_ingest() else [])
         self._flow_buffer = [None if f is None else np.asarray(f, np.float32)
                              for f in state.get("flow_buffer",
                                                 [None] * len(self._buffer))]
@@ -268,6 +285,11 @@ class DenseSegmentation:
             fin_eager=p.preseg_fin_eager, fin_gated=p.preseg_fin_gated,
             pair_merge=p.preseg_pair_merge)
 
+    def _felz_at_ingest(self) -> bool:
+        """Whether each frame gets its felz pre-segmentation (K1) at
+        ingest."""
+        return self._preseg_mode == "felz" and self._presegment
+
     def _stage_done(self, name: str, t0: float) -> float:
         devmod.synchronize(self.device)
         t1 = time.monotonic()
@@ -293,7 +315,7 @@ class DenseSegmentation:
         t0 = time.monotonic()
         img = self.preprocess(frame_bgr_u8)
         self._buffer.append(img)
-        if self._preseg_mode == "felz":
+        if self._felz_at_ingest():
             self._preseg_buffer.append(self._preseg_frame(img))
         if flow is None or hasattr(flow, "numpy_f16"):
             self._flow_buffer.append(flow)
@@ -357,8 +379,8 @@ class DenseSegmentation:
             if self._pad_rows:
                 flow = _pad_rows_edge(flow, 1, self._pad_rows)
 
-        tile_fin = tile_stats = None
-        if self._preseg_mode == "felz":
+        tile_init = tile_fin = tile_stats = None
+        if self._felz_at_ingest():
             while len(self._preseg_buffer) < len(self._buffer):
                 k = len(self._preseg_buffer)
                 self._preseg_buffer.append(
@@ -373,12 +395,16 @@ class DenseSegmentation:
                                for i in range(4))
             if not self._params.carry_preseg_fin:
                 tile_fin = None
-        else:
+        elif self._presegment:
             # Tile flood (K4) over the whole padded chunk: tile-local
-            # regions of pixels within `preseg_threshold` of a neighbour.
+            # regions of pixels within `preseg_threshold` of a neighbour
+            # for the edge-table solver (its table must hold them); the v1
+            # solver floods only the merges the force-merge shortcut makes
+            # unconditionally.
+            thr = (self._params.preseg_threshold if self._params.edge_table
+                   else self._params.force_merge_weight)
             tile_init = tile_preseg.tile_presegment(
-                vol, self._params.preseg_threshold,
-                self.options.color_distance)
+                vol, thr, self.options.color_distance)
 
         # The previous chunk's (possibly deferred) tail produces the
         # overlap constraint planes.
@@ -422,17 +448,28 @@ class DenseSegmentation:
             uniq, first = np.unique(key0, return_index=True)
             init_sm[0] = first[np.searchsorted(uniq, key0)] \
                 .reshape(hp, w).astype(np.int32)
-            tile_sm = tile_init[1:n_constrained].cpu().numpy()
-            for pl_i in range(1, n_constrained):
-                key = (tile_sm[pl_i - 1].astype(np.int64).ravel()
-                       * (len(cid_to_gid) + 1)
-                       + compact[pl_i].ravel() + 1)
-                uniq, first = np.unique(key, return_index=True)
-                canon = first[np.searchsorted(uniq, key)]
-                init_sm[pl_i] = (pl_i * hp * w
-                                 + canon).reshape(hp, w).astype(np.int32)
+            if tile_init is None:
+                # No pre-segmentation (v1 with tile_presegment off): the
+                # constrained and the free planes seed one region a voxel.
+                init_sm[1:] = np.arange(hp * w, n_constrained * hp * w,
+                                        dtype=np.int32) \
+                    .reshape(n_constrained - 1, hp, w)
+                free = torch.arange(n_constrained * hp * w,
+                                    t_solve * hp * w, dtype=torch.int32,
+                                    device=dev).reshape(-1, hp, w)
+            else:
+                tile_sm = tile_init[1:n_constrained].cpu().numpy()
+                for pl_i in range(1, n_constrained):
+                    key = (tile_sm[pl_i - 1].astype(np.int64).ravel()
+                           * (len(cid_to_gid) + 1)
+                           + compact[pl_i].ravel() + 1)
+                    uniq, first = np.unique(key, return_index=True)
+                    canon = first[np.searchsorted(uniq, key)]
+                    init_sm[pl_i] = (pl_i * hp * w + canon) \
+                        .reshape(hp, w).astype(np.int32)
+                free = tile_init[n_constrained:]
             init_label = torch.cat([torch.as_tensor(init_sm, device=dev),
-                                    tile_init[n_constrained:]])
+                                    free])
             if tile_fin is not None:
                 # Constrained planes run fully open (level NUM_BUCKETS).
                 plane = torch.arange(t_solve, device=dev)[:, None, None]
@@ -441,21 +478,24 @@ class DenseSegmentation:
 
         # Live-seed count -> 16384-quantized table size (the table caps
         # are semantics: they decide sink overflow and recompaction); per
-        # band, the largest band's count.
-        q = 16384
-        flat = init_label.reshape(-1)
-        is_root = flat == torch.arange(flat.shape[0], device=dev)
-        if self._bands > 1:
-            bh = hp // self._bands
-            n_seeds = int(is_root.reshape(t_solve, self._bands, bh, w)
-                          .sum(dim=(0, 2, 3)).max())
-            cap_b = ((n_seeds + 1024 + q - 1) // q) * q
-            params = self._params._replace(
-                band_table_slots=min(cap_b, t_solve * bh * w))
-        else:
-            slots = ((int(is_root.sum()) + 1024 + q - 1) // q) * q
-            params = self._params._replace(
-                table_slots=min(slots, t_solve * hp * w))
+        # band, the largest band's count.  The v1 solver sizes its own
+        # compact table.
+        params = self._params
+        if params.edge_table and init_label is not None:
+            q = 16384
+            flat = init_label.reshape(-1)
+            is_root = flat == torch.arange(flat.shape[0], device=dev)
+            if self._bands > 1:
+                bh = hp // self._bands
+                n_seeds = int(is_root.reshape(t_solve, self._bands, bh, w)
+                              .sum(dim=(0, 2, 3)).max())
+                cap_b = ((n_seeds + 1024 + q - 1) // q) * q
+                params = params._replace(
+                    band_table_slots=min(cap_b, t_solve * bh * w))
+            else:
+                slots = ((int(is_root.sum()) + 1024 + q - 1) // q) * q
+                params = params._replace(
+                    table_slots=min(slots, t_solve * hp * w))
 
         head_planes = (1 + self.constraint_frames if self._overlap_gids
                        else 0)

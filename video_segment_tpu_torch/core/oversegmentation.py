@@ -1,5 +1,5 @@
-"""Over-segmentation solver: the edge-table path of the bucketized region
-merging, in PyTorch.
+"""Over-segmentation solver: the bucketized region merging, in PyTorch
+(the edge-table solver, and the v1 pixel solver).
 
 Port of video_segment_tpu/core/oversegmentation.py (see its module
 docstring for the semantics): ascending bucket-threshold schedule levels,
@@ -20,8 +20,10 @@ falls inside the gated levels (the masked rounds then see the shrunk
 table's top-K edges).  Every off-default knob runs: the variance
 descriptor, the gradient trait (`ops/pixel_distance`) and the two-stage
 solve's spatial pre-pass, each with the masked rounds for gated levels as
-in the JAX package.  The v1 pixel solver (`edge_table=False`) is not
-ported and raises.
+in the JAX package.  The v1 pixel solver (`edge_table=False`,
+`_solve_pixel`) folds the stencil over the voxels in every round, compacts
+its region slots after `compact_after_levels` levels, and refuses the
+descriptor traits and the gradient trait as the JAX package does.
 
 JAX's segment reductions become `scatter_reduce_` / `index_add_` into
 tensors pre-filled with the same empty-segment identities (INT32_MAX /
@@ -147,8 +149,9 @@ class OversegResult(NamedTuple):
     label16: torch.Tensor | None = None
     lut: torch.Tensor | None = None
     nsink: torch.Tensor | None = None
-    # Per schedule level [table cap, merge rounds used, live regions after
-    # the level] (always filled: the round loop syncs anyway).
+    # Per schedule level [table cap (the v1 solver: its segment-domain
+    # size), merge rounds used, live regions after the level] (always
+    # filled: the round loop syncs anyway).
     diag: np.ndarray | None = None
 
 
@@ -222,31 +225,42 @@ def _bucketize(d):
                        NUM_BUCKETS - 1)
 
 
-def _shift_dir_list(temporal_undisplaced: bool):
-    """[(dt,dy,dx)] of the shift-expressible directions: forward spatial,
+def _shift_dir_list(temporal_undisplaced: bool, spatial_dirs=SPATIAL_FWD,
+                    temporal_fwd: bool = False):
+    """[(dt,dy,dx)] of the shift-expressible directions: `spatial_dirs`,
     plus every backward temporal one when the volume has more than one
-    frame and no flow (with flow they are displaced: `_fold_dirs_raw`)."""
-    dirs = [(0, dy, dx) for dy, dx in SPATIAL_FWD]
+    frame and no flow (with flow they are displaced: `_fold_dirs_raw`),
+    plus every forward temporal one, undisplaced even with flow, when
+    `temporal_fwd` (the pixel solver's level-end view, as in the JAX
+    package)."""
+    dirs = [(0, dy, dx) for dy, dx in spatial_dirs]
     if temporal_undisplaced:
         dirs += [(-1, dy, dx) for dy, dx in TEMPORAL_DIRS]
+    if temporal_fwd:
+        dirs += [(1, dy, dx) for dy, dx in TEMPORAL_DIRS]
     return dirs
 
 
 class _RawDir(NamedTuple):
-    """One direction's raw neighbor view (all (T,H,W)-shaped)."""
+    """One direction's raw neighbor view (all (T,H,W)-shaped); `temporal`
+    says whether the direction crosses frames."""
     valid: torch.Tensor
     bucket: torch.Tensor
     nb_label: torch.Tensor
+    temporal: bool
 
 
 def _fold_dirs_raw(feats, label3, metric, fold_fn, carry, flow=None,
-                   pair_dist=None):
-    """Fold `fold_fn(carry, _RawDir) -> carry` over every extraction
-    direction: the shift-expressible ones as halo-padded views of the
-    (T,H,W,C) feature volume, then, with `flow` ((T-1,H,W,2) backward flow
-    of frames 1..T-1), the nine flow-displaced backward directions, in
-    TEMPORAL_DIRS order.  Buckets come from `pair_dist(own, neighbor)`
-    (`_pair_dist_fn`; default the color distance of channels 0:3)."""
+                   pair_dist=None, spatial_dirs=SPATIAL_FWD,
+                   temporal_fwd: bool = False):
+    """Fold `fold_fn(carry, _RawDir) -> carry` over every incident
+    direction: the shift-expressible ones (`_shift_dir_list`: by default
+    the forward spatial and the backward temporal directions the edge
+    extraction reads) as halo-padded views of the (T,H,W,C) feature volume,
+    then, with `flow` ((T-1,H,W,2) backward flow of frames 1..T-1), the
+    nine flow-displaced backward directions, in TEMPORAL_DIRS order.
+    Buckets come from `pair_dist(own, neighbor)` (`_pair_dist_fn`; default
+    the color distance of channels 0:3)."""
     t, h, w, _ = feats.shape
     if pair_dist is None:
         pair_dist = lambda a, b: _dist(a, b, metric)  # noqa: E731
@@ -254,7 +268,8 @@ def _fold_dirs_raw(feats, label3, metric, fold_fn, carry, flow=None,
     ys = torch.arange(h, device=dev)[None, :, None]
     xs = torch.arange(w, device=dev)[None, None, :]
     ts = torch.arange(t, device=dev)[:, None, None]
-    dirs = _shift_dir_list(flow is None and t > 1)
+    dirs = _shift_dir_list(flow is None and t > 1, spatial_dirs,
+                           temporal_fwd and t > 1)
     fpad = torch.nn.functional.pad(feats, (0, 0, 1, 1, 1, 1, 1, 1))
     lpad = torch.nn.functional.pad(label3, (1, 1, 1, 1, 1, 1))
     for dt, dy, dx in dirs:
@@ -264,7 +279,7 @@ def _fold_dirs_raw(feats, label3, metric, fold_fn, carry, flow=None,
                  & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w))
         bucket = _bucketize(pair_dist(feats, fn))
         carry = fold_fn(carry, _RawDir(valid=valid, bucket=bucket,
-                                       nb_label=labn))
+                                       nb_label=labn, temporal=dt != 0))
     if flow is None or t == 1:
         return carry
     return _fold_flow_dirs(feats, label3, flow, pair_dist, fold_fn, carry)
@@ -309,7 +324,8 @@ def _fold_flow_dirs(feats, label3, flow, pair_dist, fold_fn, carry):
         bucket = _bucketize(pair_dist(feats[1:], fn_all[k]))
         carry = fold_fn(carry, _RawDir(valid=pad_first(valid2, False),
                                        bucket=pad_first(bucket),
-                                       nb_label=pad_first(labn_all[k])))
+                                       nb_label=pad_first(labn_all[k]),
+                                       temporal=True))
     return carry
 
 
@@ -1425,12 +1441,255 @@ def _solve_banded(vol, flow, init_label, constr_init, frozen_init, fin_init,
                                has_constraints)
 
 
+# ---------------------------------------------------------------------------
+# Pixel solver (v1, edge_table=False): every round folds the stencil over
+# the voxels; after `compact_after_levels` levels the region slots are
+# renumbered into a table of r_cap slots plus an inert sink.
+
+
+def _features(state: SolverState, label3):
+    """Per-slot [mean, size, constr, fin, frozen] gathered at each voxel's
+    root (the JAX package packs them into one float32 slab; constraint ids
+    and finalize levels ride there exactly, so separate gathers are the
+    same values)."""
+    mean = state.csum / torch.clamp(state.size, min=1.0)[:, None]
+    return (mean, _take(mean, label3), _take(state.size, label3),
+            _take(state.constr, label3), _take(state.fin, label3),
+            _take(state.frozen, label3))
+
+
+def _round(state: SolverState, vol, flow, theta, up, mode, n, sink,
+           p: OversegParams, use_temporal: bool = True):
+    """One Boruvka round over the voxels (JAX `_round`): each voxel folds
+    its forward spatial and backward temporal (flow-displaced with flow)
+    neighbours into the lexicographic minimum (bucket, partner) admissible
+    edge, then regions select and hook.  `n` is the segment-domain size,
+    `sink` the inert overflow slot (-1 before compaction): sink regions
+    never merge.  `use_temporal=False` drops the temporal directions (the
+    two-stage spatial pre-pass).  A neighbour's region attributes are
+    gathered by its label, and every use sits under `valid`, so the
+    zero-filled first frame of the flow directions is never read."""
+    t, h, w, _ = vol.shape
+    label3 = state.label.reshape(t, h, w)
+    mean, own_mean, own_size, own_constr, own_fin, _ = \
+        _features(state, label3)
+    is_min_size = mode == MODE_MIN_SIZE
+    own_small = own_size < p.min_region_size
+    own_live = label3 != sink
+
+    def fold(carry, d: _RawDir):
+        if d.temporal and not use_temporal:
+            return carry
+        best_bucket, best_partner = carry
+        nb = d.nb_label
+        act = d.valid & (nb != label3) & own_live & (nb != sink)
+        nb_constr = _take(state.constr, nb)
+        either_free = (own_constr < 0) | (nb_constr < 0)
+        if is_min_size:
+            both_constr_diff = ~either_free & (own_constr != nb_constr)
+            adm = own_small & ~both_constr_diff & (d.bucket <= theta)
+        else:
+            dd = _desc_distance(own_mean, _take(mean, nb), d.bucket, p)
+            regular = (either_free & (d.bucket < own_fin)
+                       & (d.bucket < _take(state.fin, nb))
+                       & (dd < p.merge_threshold))
+            constr_same = (~either_free & (own_constr == nb_constr)
+                           & (dd <= p.split_threshold))
+            adm = (d.bucket <= theta) & (regular | constr_same)
+        adm = act & adm
+        bkt = torch.where(adm, d.bucket, I32MAX)
+        take = adm & ((bkt < best_bucket)
+                      | ((bkt == best_bucket) & (nb < best_partner)))
+        return (torch.where(take, bkt, best_bucket),
+                torch.where(take, nb, best_partner))
+
+    init = (torch.full((t, h, w), I32MAX, dtype=torch.int32,
+                       device=vol.device),) * 2
+    best_bucket, best_partner = _fold_dirs_raw(vol, label3, p.metric, fold,
+                                               init, flow)
+    partner = _select_partners(best_bucket.reshape(-1),
+                               best_partner.reshape(-1), state.label, n)
+    return _apply_merge(state, partner, n, up=up,
+                        pair_gate=_pair_gate(p, is_min_size))
+
+
+def _level_end(state: SolverState, vol, flow, theta, n, p: OversegParams,
+               use_temporal: bool = True):
+    """Level-end finalization and unconstraining over the voxels (JAX
+    `_level_end`): both views of every edge, i.e. all eight spatial
+    directions, the backward temporal ones (flow-displaced with flow) and
+    the forward temporal ones, which stay undisplaced even with flow, as
+    in the JAX package."""
+    t, h, w, _ = vol.shape
+    label3 = state.label.reshape(t, h, w)
+    mean, own_mean, own_size, own_constr, own_fin, own_frozen = \
+        _features(state, label3)
+
+    def fold(carry, d: _RawDir):
+        if d.temporal and not use_temporal:
+            return carry
+        fail_min, uncon_any = carry
+        nb = d.nb_label
+        act = d.valid & (nb != label3) & (d.bucket <= theta)
+        dd = _desc_distance(own_mean, _take(mean, nb), d.bucket, p)
+        nb_constr = _take(state.constr, nb)
+        either_free = (own_constr < 0) | (nb_constr < 0)
+        fail = (act & either_free & (d.bucket < own_fin)
+                & (d.bucket < _take(state.fin, nb))
+                & (dd >= p.merge_threshold))
+        split = (act & ~either_free & (own_constr == nb_constr)
+                 & (dd > p.split_threshold))
+        # The own side is unconstrained unless the neighbour is much
+        # smaller (it then unconstrains itself from its own view); frozen
+        # regions never are.
+        uncon = (split & ~(_take(state.size, nb) < 0.3 * own_size)
+                 & ~own_frozen)
+        return (torch.minimum(fail_min, torch.where(fail, d.bucket, I32MAX)),
+                uncon_any | uncon)
+
+    init = (torch.full((t, h, w), I32MAX, dtype=torch.int32,
+                       device=vol.device),
+            torch.zeros((t, h, w), dtype=torch.bool, device=vol.device))
+    fail_min, uncon_any = _fold_dirs_raw(vol, label3, p.metric, fold, init,
+                                         flow, spatial_dirs=SPATIAL_ALL,
+                                         temporal_fwd=True)
+    fail_r = seg_min(fail_min.reshape(-1), state.label, n)
+    uncon_r = seg_max(uncon_any.reshape(-1).to(torch.int32), state.label,
+                      n) > 0
+    return state._replace(fin=torch.minimum(state.fin, fail_r),
+                          constr=torch.where(uncon_r, -1, state.constr))
+
+
+def _compact(state: SolverState, n_pix: int, r_cap: int):
+    """Renumber the roots, in slot order, into a table of r_cap slots plus
+    the sink slot r_cap, where roots beyond the table go (JAX `_compact`).
+    Returns the compact state (per-voxel compact memberships) and the
+    per-voxel root before compaction, for the final labels."""
+    slots = _arange(n_pix, state.label)
+    is_root = state.label == slots
+    cidx_all = torch.cumsum(is_root.to(torch.int32), 0,
+                            dtype=torch.int32) - 1
+    ok = is_root & (cidx_all < r_cap)
+    cidx = torch.where(ok, cidx_all, r_cap)
+    nseg = r_cap + 1
+    # Colour sums are summed over every slot (non-roots hold zeros), the
+    # other statistics over roots only, as in the JAX package.
+    csum = seg_sum(state.csum, cidx, nseg)
+    size = seg_sum(torch.where(is_root, state.size, 0.0), cidx, nseg)
+    constr = seg_max(torch.where(is_root, state.constr, -1), cidx, nseg)
+    fin = seg_min(torch.where(is_root, state.fin, I32MAX), cidx, nseg)
+    frozen = seg_max((is_root & state.frozen).to(torch.int32), cidx,
+                     nseg) > 0
+    # The sink never merges: finalize level 0, unconstrained.
+    fin[r_cap] = 0
+    constr[r_cap] = -1
+    return (SolverState(_take(cidx, state.label), csum, size, constr, fin,
+                        frozen), state.label)
+
+
+def _solve_pixel(vol, flow, init_label, constr_init, frozen_init, fin_init,
+                 params: OversegParams, thetas, level_rounds,
+                 has_constraints: bool):
+    """The v1 pixel solver (the `edge_table=False` body of JAX `_solve`):
+    seed sums over `init_label`, the optional two-stage spatial pre-pass,
+    phase A's levels in voxel slot space, compaction, phase B's levels
+    over compact memberships, the final min-size pass, the constraint
+    merge and the labels in original root-voxel space.  The result has no
+    `label16`; its diag holds per level [segment-domain size, merge rounds
+    used, live regions after the level]."""
+    t, h, w, _ = vol.shape
+    n_pix = t * h * w
+    dev = vol.device
+    n_levels = len(thetas)
+    diag = np.zeros((n_levels, 3), np.int32)
+
+    stats = seg_sum(torch.cat([vol.reshape(n_pix, 3),
+                               torch.ones((n_pix, 1), dtype=torch.float32,
+                                          device=dev)], 1), init_label, n_pix)
+    state = SolverState(
+        init_label, stats[:, 0:3], stats[:, 3],
+        seg_max(constr_init, init_label, n_pix),
+        seg_min(fin_init, init_label, n_pix),
+        seg_max(frozen_init.to(torch.int32), init_label, n_pix) > 0)
+
+    def run_rounds(st, theta, max_rounds, mode, n, sink, use_temporal=True,
+                   fin_each=False):
+        # Hook parity alternates per round and restarts with every call;
+        # the phase ends once no admissible edge remains, or after two
+        # merge-free rounds (both parities blocked).
+        scan_each = fin_each and params.fin_every_round
+        i = idle = 0
+        while idle < 2 and i < max_rounds:
+            if scan_each:
+                st = _level_end(st, vol, flow, theta, n, params, use_temporal)
+            st, moved, cands = _round(st, vol, flow, theta, (i % 2) == 0,
+                                      mode, n, sink, params, use_temporal)
+            moved, cands = torch.stack([moved, cands]).tolist()
+            idle = 2 if cands == 0 else (0 if moved > 0 else idle + 1)
+            i += 1
+        return st, i
+
+    def level(st, lvl, n, sink, use_temporal=True):
+        st, used = run_rounds(st, thetas[lvl], level_rounds[lvl], MODE_MERGE,
+                              n, sink, use_temporal, fin_each=True)
+        st = _level_end(st, vol, flow, thetas[lvl], n, params, use_temporal)
+        if params.min_size_interleave and params.min_region_size > 1:
+            st, _ = run_rounds(st, thetas[lvl], params.min_size_interleave,
+                               MODE_MIN_SIZE, n, sink, use_temporal)
+        live = (st.size > 0) & (_arange(n, vol) != sink)
+        diag[lvl] = (n, used, int(live.sum()))
+        return st
+
+    if params.two_stage:
+        # Spatial-only pre-pass over the whole schedule
+        # (SegmentGraphSpatially, dense_segmentation_graph.h:406-416); its
+        # finalizations carry into the full pass.
+        for lvl in range(n_levels):
+            state = level(state, lvl, n_pix, -1, use_temporal=False)
+
+    n_a = min(max(params.compact_after_levels, 0), n_levels)
+    for lvl in range(n_a):
+        state = level(state, lvl, n_pix, -1)
+
+    r_cap = min(max(n_pix // params.compact_divisor, 1 << 14), n_pix)
+    nseg = r_cap + 1
+    state, orig_label = _compact(state, n_pix, r_cap)
+    for lvl in range(n_a, n_levels):
+        state = level(state, lvl, nseg, r_cap)
+
+    if params.min_region_size > 1:
+        state, _ = run_rounds(state, NUM_BUCKETS, params.min_size_rounds,
+                              MODE_MIN_SIZE, nseg, r_cap)
+    if has_constraints:
+        state = _merge_constrained(state, params.max_constraints, nseg,
+                                   params)
+
+    # Each compact region takes its minimum original root; sink voxels keep
+    # their phase-A root.  The sink pools unrelated overflow regions, so
+    # its attributes are dropped (they come out unconstrained, size 0).
+    orig_min = seg_min(orig_label, state.label, nseg)
+    final = torch.where(state.label == r_cap, orig_label,
+                        _take(orig_min, state.label))
+    live = (state.size > 0) & (_arange(nseg, vol) != r_cap)
+    return OversegResult(label=final.reshape(t, h, w),
+                         constr=torch.where(live, state.constr, -1),
+                         size=torch.where(live, state.size, 0.0),
+                         orig=torch.where(live, orig_min, -1), diag=diag)
+
+
 def _check_scope(params: OversegParams) -> None:
-    """Raise for the solver configurations this port does not cover."""
+    """Raise for the solver configurations the JAX package refuses, and
+    for supertile settings the K3 levels cannot hold (the pixel solver has
+    no supertile levels)."""
     if not params.edge_table:
-        raise NotImplementedError(
-            "the v1 pixel solver (edge_table=False) is not ported "
-            "(ROADMAP.md, Queue 1: deliberately left out)")
+        if params.descriptor != "color_mean":
+            raise ValueError("descriptor traits other than color_mean "
+                             "require the edge-table solver "
+                             "(edge_table=True)")
+        if params.gradient_trait:
+            raise ValueError("the gradient trait requires the edge-table "
+                             "solver (edge_table=True)")
+        return
     if params.st_levels > 0:
         # Packed K3 keys hold 12 partner bits; the slot grid is 128 wide.
         if not (0 < params.st_slots <= 4096 and params.st_slots % 128 == 0):
@@ -1448,15 +1707,17 @@ def oversegment(vol, flow=None, constraints=None, init_label=None,
                 frozen=None, fin=None,
                 params: OversegParams = OversegParams(),
                 cell_stats=None, head_planes: int = 0) -> OversegResult:
-    """Over-segment a chunk volume (the edge-table solver).
+    """Over-segment a chunk volume: the edge-table solver, or the v1
+    pixel solver with `params.edge_table=False`.
 
     Args mirror the JAX `oversegment`: vol (T,H,W,3) float32 smoothed BGR
     in [0,1]; optional (T-1,H,W,2) float32 backward `flow` of frames
     1..T-1; optional (T,H,W) constraints (int, -1 free), init_label,
     frozen (bool), fin (int levels or bool); `cell_stats` (size, c0, c1,
     c2) cell-positioned at root voxels as `tile_felzenszwalb` exports;
-    `head_planes` leading planes of host-built constraint groups.  All
-    tensors live on vol's device; the solve runs there.
+    `head_planes` leading planes of host-built constraint groups (the
+    pixel solver ignores both, as in the JAX package).  All tensors live
+    on vol's device; the solve runs there.
     """
     _check_scope(params)
     t, h, w, _ = vol.shape
@@ -1482,6 +1743,11 @@ def oversegment(vol, flow=None, constraints=None, init_label=None,
     thetas = [int(x) for x in params.schedule]
     level_rounds = ([params.max_rounds_per_level] * (len(thetas) - 1)
                     + [params.max_final_rounds])
+    if not params.edge_table:
+        return _solve_pixel(vol, None if flow is None
+                            else flow.to(torch.float32), init_label,
+                            constr_init, frozen_init, fin_init, params,
+                            thetas, level_rounds, has_constraints)
     return _solve_edge_table(vol, init_label, constr_init, frozen_init,
                              fin_init, params, n, thetas, level_rounds,
                              has_constraints, cell_stats, head_planes,
