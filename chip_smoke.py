@@ -81,14 +81,24 @@ Phases (each prints one line; any failure exits non-zero):
     --region_param save_descriptors=1 (one RegionFeatures per region on
     hierarchy frames);
 26. no module of the JAX package (video_segment_tpu) and no jax was
-    imported (checked at the end, after phase 27);
+    imported (checked at the end, after phase 28);
 27. the v1 pixel solver (OversegParams(edge_table=False)): SegmentStream
     over the 41-frame 272x480 clip, flow off, full hierarchy, with the
     felz presegs at ingest (K1 41, K2 0, K3 0, K4 0) and in flood mode (K4
     once a chunk solve, at the force-merge weight; no other kernel), the
     flow path over 21 frames, the felz v1 dense stage card vs CPU over 5
     frames (boundary F), and seg_tree --no-flow --solver_param
-    edge_table=0 over 21 frames (K1 21, K2 0).
+    edge_table=0 over 21 frames (K1 21, K2 0);
+28. the device mesh (parallel/mesh.py): make_mesh() over the machine's
+    cards (one line says so where there is one card: transfers between
+    cards are then not exercised); a (1,4) mesh of cuda:0 whose
+    DenseSegmentation stream over 21 frames of the 272x480 clip equals
+    solver_bands=4 id image for id image (K1 21, K2 8 = 4 bands x 2
+    chunk solves); the mesh stream, solver_bands=4 and the 1-band default
+    timed (seconds, fps, peak MiB, launches); sharded_oversegment on a
+    (2,2) mesh of cuda:0 against the single-device banded solve;
+    sharded_presmooth (bilateral); fused_oversegment over 2 clips;
+    dryrun_multichip(4).
 Phases 19-23, 25's and 27's seg_tree runs decode with cv2 and write with
 protobuf; where either is missing one line names it and the phases left
 out.
@@ -1159,6 +1169,146 @@ def v1_phase(tmp, frames_p, with_cli) -> dict:
     return counts
 
 
+def mesh_phase(frames_p) -> dict:
+    """Phase 28: the device mesh on the card.  make_mesh() over the
+    machine's cards; a (1,4) mesh of cuda:0 whose DenseSegmentation stream
+    over 21 frames equals solver_bands=4 id image for id image and
+    SegFrame for SegFrame (both under deterministic algorithms, K1 21 and
+    K2 8 launches on the mesh run); timed runs of the mesh stream, of
+    solver_bands=4 and of the 1-band default (order bands4, mesh, 1 band,
+    mesh, bands4: seconds, fps, peak MiB, launches); sharded_oversegment
+    on a (2,2) cuda:0 mesh against the single-device banded solve;
+    sharded_presmooth (bilateral, halo 4) on that mesh against the filter
+    image by image; fused_oversegment over 2 clips against each clip's
+    solve (the solves under deterministic algorithms); dryrun_multichip(4).
+    Returns {"mesh": (K1, K2, K4, K3) launches of the mesh run, "timed":
+    {run: [...]}}."""
+    from video_segment_tpu_torch import api
+    from video_segment_tpu_torch.core import dense
+    from video_segment_tpu_torch.core import oversegmentation as ov
+    from video_segment_tpu_torch.ops import filters
+    from video_segment_tpu_torch.parallel import entry
+    from video_segment_tpu_torch.parallel import mesh as pmesh
+    dev = torch.device("cuda", 0)
+    t_phase = time.monotonic()
+    n_cards = torch.cuda.device_count()
+    log("mesh", f"make_mesh() over this machine's cards: "
+        f"{pmesh.make_mesh()!r}")
+    if n_cards == 1:
+        log("mesh", "one card on this machine: every mesh entry is cuda:0, "
+            "so transfers between cards were not exercised")
+    frames = frames_p[:N_SHORT_FRAMES]
+    n = len(frames)
+    same = pmesh.Mesh([[dev] * 4])
+
+    def stream(name):
+        if name == "mesh":
+            ds = dense.DenseSegmentation(api.DenseSegmentationOptions(), W,
+                                         H, mesh=same)
+        else:
+            ds = dense.DenseSegmentation(api.DenseSegmentationOptions(
+                solver_bands=4 if name == "bands4" else 0), W, H,
+                device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches(*kernel_wrappers())
+        t0 = time.monotonic()
+        out = []
+        for fr in frames:
+            out += ds.process_frame(False, fr)
+        out += ds.process_frame(True)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        return out, dict(s=wall, fps=n / wall,
+                         peak_mib=torch.cuda.max_memory_allocated(dev)
+                         / 2 ** 20, launches=launch_counts(),
+                         bands=ds._bands, solves=len(ds.solve_diag))
+
+    with deterministic():
+        out_m, run_m = stream("mesh")
+        out_b, run_b = stream("bands4")
+    want = (n, 4 * expected_chunk_solves(n, 20), 0, 0)
+    if run_m["launches"] != want:
+        raise AssertionError(f"mesh stream launches K1/K2/K4/K3 "
+                             f"{run_m['launches']}, want {want}")
+    ids_m, ids_b = rasterize(out_m), rasterize(out_b)
+    if (ids_m < 0).any() or not np.array_equal(ids_m, ids_b) or \
+            signature(out_m) != signature(out_b):
+        raise AssertionError("the (1,4) mesh stream differs from "
+                             "solver_bands=4")
+    log("mesh", f"(1,4) mesh of cuda:0, {n} frames {W}x{H}, flow off, "
+        f"deterministic algorithms: id images and SegFrames equal "
+        f"solver_bands=4's ({len(np.unique(ids_m))} ids); launches "
+        f"K1/K2/K4/K3 mesh {run_m['launches']} bands4 {run_b['launches']}")
+
+    timed = {"bands4": [], "mesh": [], "bands1": []}
+    for name in ("bands4", "mesh", "bands1", "mesh", "bands4"):
+        _, run = stream(name)
+        timed[name].append(run)
+        log("mesh", f"timed {name}: {run['s']:.3f}s = {run['fps']:.3f} fps, "
+            f"peak {run['peak_mib']:.1f} MiB, {run['bands']} band(s), "
+            f"{run['solves']} chunk solves, launches K1/K2/K4/K3 "
+            f"{run['launches']}")
+
+    # sharded_oversegment, sharded_presmooth and fused_oversegment on a
+    # (2,2) mesh of cuda:0, on crops of two clip windows.
+    m22 = pmesh.Mesh([[dev] * 2] * 2)
+    clips = torch.tensor(np.stack([np.stack(frames[:4]),
+                                   np.stack(frames[8:12])]),
+                         device=dev)[:, :, :128, :256]
+    vols = clips.to(torch.float32) * (1.0 / 255.0)
+    # A table of one slot a voxel: every seed is live (no sink overflow).
+    params = ov.OversegParams(min_region_size=20, table_divisor=1)
+    with deterministic():
+        reset_launches(*kernel_wrappers())
+        t0 = time.monotonic()
+        labels = pmesh.sharded_oversegment(m22, params)(vols)
+        torch.cuda.synchronize()
+        t_sh = time.monotonic() - t0
+        k2_sh = launch_counts()[1]
+        single = [ov.oversegment(v, params=params._replace(bands=2)).label
+                  for v in vols]
+        fused = pmesh.fused_oversegment(params)(vols)
+        alone = [ov.oversegment(v, params=params).label for v in vols]
+    for i in range(2):
+        if not torch.equal(labels[i], single[i]):
+            raise AssertionError(f"sharded_oversegment clip {i} differs "
+                                 "from the single-device banded solve")
+        if not torch.equal(fused[i], alone[i]):
+            raise AssertionError(f"fused_oversegment clip {i} differs")
+    if k2_sh != 4:
+        raise AssertionError(f"sharded_oversegment: K2 {k2_sh}, want 4")
+    log("mesh", f"sharded_oversegment on a (2,2) mesh of cuda:0, 2 clips "
+        f"{tuple(vols.shape[1:4])}: labels equal the single-device "
+        f"2-band solve ({int(torch.unique(labels).numel())} labels, K2 "
+        f"{k2_sh}, {t_sh:.2f}s)")
+
+    big = torch.tensor(np.stack([np.stack(frames[:2]), np.stack(frames[2:4])]),
+                       device=dev).to(torch.float32) * (1.0 / 255.0)
+    t0 = time.monotonic()
+    sm = pmesh.sharded_presmooth(m22, "bilateral", halo=4)(big)
+    torch.cuda.synchronize()
+    t_pre = time.monotonic() - t0
+    ref = torch.stack([torch.stack([filters.presmooth(img, "bilateral")
+                                    for img in clip]) for clip in big])
+    err = float((sm - ref).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"sharded_presmooth differs from the filter "
+                             f"by {err}")
+    log("mesh", f"sharded_presmooth (bilateral, halo 4) on the (2,2) mesh, "
+        f"{tuple(big.shape)}: equal to the filter image by image bit for "
+        f"bit ({t_pre:.2f}s)")
+
+    log("mesh", f"fused_oversegment over 2 clips {tuple(vols.shape[1:4])}: "
+        "each equal to its single-clip solve")
+
+    t0 = time.monotonic()
+    entry.dryrun_multichip(4)
+    log("mesh", f"dryrun_multichip(4) passed ({time.monotonic() - t0:.1f}s)")
+    log("mesh", f"phase 28 took {time.monotonic() - t_phase:.1f}s")
+    return {"mesh": run_m["launches"], "timed": timed}
+
+
 def main() -> int:
     # -- 1. environment ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1769,6 +1919,9 @@ def main() -> int:
         v1_counts = v1_phase(tmp, frames_p, with_cli=missing is None)
         log("v1", f"phase 27 took {time.monotonic() - t0:.1f}s")
 
+    # -- 28. the device mesh -------------------------------------------------
+    mesh_counts = mesh_phase(frames_p)["mesh"]
+
     # -- 26. the port stands alone -----------------------------------------
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -1793,7 +1946,8 @@ def main() -> int:
              launches_fused=fused_counts[0],
              launches_knobs={k: v[0] for k, v in knob_counts.items()},
              launches_v1=v1_counts["felz"][0],
-             launches_v1_flood=v1_counts["flood"][0]),
+             launches_v1_flood=v1_counts["flood"][0],
+             launches_mesh=mesh_counts[0]),
         dict(name="tile_reduce_min", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_extract.cu",
              replaces="video_segment_tpu/ops/tile_extract.py:102",
@@ -1805,6 +1959,7 @@ def main() -> int:
              launches_knobs={k: v[1] for k, v in knob_counts.items()},
              launches_v1=v1_counts["felz"][1],
              launches_v1_flood=v1_counts["flood"][1],
+             launches_mesh=mesh_counts[1],
              band_ms=k2_band_ms, band_plain_ms=k2_band_plain_ms,
              band_bound_ms=k2_band_bound_ms),
         dict(name="tile_presegment", route="cuda",

@@ -9,7 +9,9 @@ pixel solver (flood presegs, and one seed a voxel) and banded
 (`solver_bands=2`), checkpoints and restores the banded stage, runs the
 off-default knobs (the variance descriptor with the gradient trait of
 `ops/pixel_distance`, the two-stage solve, windowed appearance with
-`save_descriptors`) through both stages, and drives
+`save_descriptors`) through both stages, runs the device mesh's entry
+step and multi-device dry run (`parallel/entry`, `parallel/mesh`) on CPU
+entries, and drives
 the host modules the CLIs use (`runtime/pipeline`, `runtime/conversion`;
 `segment_util/render` needs protobuf through `util`, and
 `segment_util/metrics` needs cv2: both are left out, and nothing that
@@ -142,6 +144,15 @@ SCRIPT = textwrap.dedent("""
         res += rs.process_frames(True, ds.process_frame(True))
         assert [sf.frame_index for sf in res] == list(range(7))
         assert any(sf.hierarchy for sf in res)
+    # The device mesh on a (1,4) mesh of CPU entries: the entry step and
+    # the multi-device dry run (presmooth, banded solve, mesh stream,
+    # agglomeration, each against its single-device result).
+    from video_segment_tpu_torch.parallel import entry as pentry
+    from video_segment_tpu_torch.parallel import mesh as pmesh
+    fn, ex = pentry.entry(device="cpu")
+    assert tuple(fn(*ex).shape) == (4, 64, 64)
+    assert pentry.dryrun_multichip(4, device="cpu")["mesh"] == \
+        pmesh.make_mesh(4, device="cpu").shape == {"data": 1, "space": 4}
     root = pipeline.Unit("src")
     root.add_child(conversion.flip_bgr_unit()).add_child(
         conversion.luminance_unit())

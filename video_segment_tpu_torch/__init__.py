@@ -11,6 +11,9 @@ kernel for Hopper (``csrc/``):
 - ``ops.tile_table.tile_table_rounds``: supertile table merge rounds;
 - ``ops.tile_preseg.tile_presegment``: tile flood pre-segmentation.
 
+``parallel`` holds the device mesh (clips on "data", solver row bands on
+"space") and the multi-device dry run.
+
 Every public entry takes an explicit ``device`` (default ``"cuda"``); a
 machine without CUDA fails instead of falling back to the CPU.  On CPU
 tensors the kernel wrappers run their plain PyTorch versions.

@@ -337,6 +337,8 @@ def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
         win_cnt = np.zeros((0, r), np.float32)
 
     def put(x):
+        if isinstance(x, torch.Tensor):   # e.g. gathered from a mesh
+            return x.to(dev, torch.float32)
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
     state = AggloState(_arange(r, torch.empty(0, device=dev)), put(hist),

@@ -16,9 +16,10 @@ own table sizing, as the banded solve runs its row bands one after the
 other: the solver's device work is eager torch ops and kernel launches on
 one stream, so a clip axis would not merge launches without rewriting every
 phase of the solver, and it would have to keep the table caps (which decide
-sink overflow and recompaction) per clip to stay exact.  So the JAX
-package's `_materialize_solve_inputs` (neutral full volumes for optional
-inputs, needed only to stack them) has no counterpart here.
+sink overflow and recompaction) per clip to stay exact.  So the batch
+needs no `_materialize_solve_inputs` (neutral full volumes for optional
+inputs, which the JAX class needs to stack them; in this port only the
+mesh solve uses them).
 `group_sizes` records, per step that solved, the sizes of the groups in
 dispatch order.
 

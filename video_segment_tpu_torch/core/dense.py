@@ -21,10 +21,13 @@ edge-table chunk over `max_solve_voxels` (or `solver_bands > 1`) is solved
 in row bands: frames are edge-padded at ingest to a whole number of
 8-row-aligned bands, the solver's pixel phases run one band at a time, and
 outputs are sliced back to the true height; the v1 solver shrinks
-`chunk_size` to fit instead.  Scope: one device; the mesh solve is not
-ported.  The host tail (N4 fix result, compaction, connectedness, id
-assignment, RLE) runs the port's copies of the JAX package's host modules
-(`core/connectedness.py`, `ops/rle.py`).
+`chunk_size` to fit instead.  With a device mesh (`mesh=`,
+`parallel/mesh.Mesh`) the band count is the mesh's "space" size and each
+chunk solve runs band b's pixel phase on the mesh's space-b device
+(`parallel/mesh.sharded_chunk_solver`); the stage itself lives on the
+mesh's first device.  The host tail (N4 fix result, compaction,
+connectedness, id assignment, RLE) runs the port's copies of the JAX
+package's host modules (`core/connectedness.py`, `ops/rle.py`).
 """
 
 from __future__ import annotations
@@ -104,10 +107,53 @@ def _preprocess_u8(frame_u8: torch.Tensor, mode: str, pad_rows: int = 0):
     return img
 
 
+def _materialize_solve_inputs(prep: dict, w: int):
+    """Materialize a `_prepare_chunk` dict's optional per-voxel solver
+    inputs to their neutral full volumes, as the JAX package does for its
+    mesh dispatch (`sharded_chunk_solver`).  Flow and cell stats stay None
+    when absent: the mesh solve reads them only when they exist, so the
+    JAX package's zero volumes would be allocated and thrown away."""
+    t_solve, hp = prep["t_solve"], prep["hp"]
+    dev = prep["vol"].device
+    shape3 = (t_solve, hp, w)
+    n = t_solve * hp * w
+    init = (prep["init_label"].reshape(shape3)
+            if prep["init_label"] is not None
+            else torch.arange(n, dtype=torch.int32, device=dev)
+            .reshape(shape3))
+    constr = (prep["constraints"].reshape(shape3)
+              if prep["constraints"] is not None
+              else torch.full(shape3, -1, dtype=torch.int32, device=dev))
+    froz = (prep["frozen"].reshape(shape3) if prep["frozen"] is not None
+            else torch.zeros(shape3, dtype=torch.bool, device=dev))
+    tf = prep["tile_fin"]
+    if tf is None:
+        fin = torch.full(shape3, ov.NUM_BUCKETS, dtype=torch.int32,
+                         device=dev)
+    elif tf.dtype == torch.bool:
+        fin = torch.where(tf.reshape(shape3), 0, ov.NUM_BUCKETS) \
+            .to(torch.int32)
+    else:
+        fin = tf.reshape(shape3).to(torch.int32)
+    cells = (tuple(x.reshape(shape3) for x in prep["tile_stats"])
+             if prep["tile_stats"] is not None else None)
+    return prep["vol"], prep["flow"], init, constr, froz, fin, cells
+
+
 def _pad_rows_edge(x: torch.Tensor, dim: int, pad_rows: int):
     """Repeat the last index of `dim` (the image rows) `pad_rows` times."""
     last = x.narrow(dim, x.shape[dim] - 1, 1)
     return torch.cat([x] + [last] * pad_rows, dim=dim)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices name the same device ("cuda" is the current
+    card)."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
 
 
 class DenseSegmentation:
@@ -122,17 +168,34 @@ class DenseSegmentation:
     `stage_seconds` accumulates wall-clock seconds per stage
     ("ingest_preseg", "chunk_solve", "host_tail"); stage boundaries
     synchronize the device so each stage owns its device time.
+
+    `device` defaults to "cuda" (raising without CUDA).  With
+    `mesh=parallel.mesh.Mesh`, the chunk solves run their row bands over
+    the mesh's "space" axis and the stage lives on the mesh's first
+    device; a `device` naming another device is an error.
     """
 
     def __init__(self, options: DenseSegmentationOptions, frame_width: int,
                  frame_height: int,
                  solver_params: ov.OversegParams | None = None, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device | None = None, mesh=None):
         if options.chunk_size < 3:
             raise ValueError("chunk_size needs to be at least 3 frames")
         options = dataclasses.replace(options)
         base = solver_params or ov.OversegParams()
-        self.device = devmod.resolve(device)
+        # Under a mesh the band count is the "space" size.
+        self._mesh = mesh
+        mesh_bands = 0
+        if mesh is not None:
+            mesh_bands = mesh.shape["space"]
+            self.device = devmod.resolve(mesh.first)
+            if device is not None and not _same_device(
+                    devmod.resolve(device), self.device):
+                raise ValueError(f"device={str(device)!r} differs from the "
+                                 f"mesh's first device {self.device}")
+        else:
+            self.device = devmod.resolve("cuda" if device is None
+                                         else device)
         # Large-resolution chunks: split the edge-table solve's pixel
         # phases into spatial row bands (bounding peak memory to one band)
         # instead of shrinking the chunk.  Bands must align to the 8-row
@@ -142,7 +205,7 @@ class DenseSegmentation:
         self._pad_rows = 0
         t_solve_full = options.chunk_size + 1
         chunk_vox = t_solve_full * frame_width * frame_height
-        forced_bands = options.solver_bands
+        forced_bands = mesh_bands or options.solver_bands
         if forced_bands > 1:
             units = -(-frame_height // 8)
             u = -(-units // forced_bands)
@@ -499,22 +562,42 @@ class DenseSegmentation:
 
         head_planes = (1 + self.constraint_frames if self._overlap_gids
                        else 0)
-        return dict(t=t, t_solve=t_solve, vol=vol, flow=flow,
+        return dict(t=t, t_solve=t_solve, hp=hp, vol=vol, flow=flow,
                     constraints=constraints, init_label=init_label,
                     frozen=frozen, tile_fin=tile_fin, tile_stats=tile_stats,
                     params=params, head_planes=head_planes,
                     cid_to_gid=cid_to_gid, t_pre0=t_pre0)
 
     def _dispatch_solve(self, prep: dict) -> ov.OversegResult:
-        res = ov.oversegment(prep["vol"], flow=prep["flow"],
-                             constraints=prep["constraints"],
-                             init_label=prep["init_label"],
-                             frozen=prep["frozen"], fin=prep["tile_fin"],
-                             params=prep["params"],
-                             cell_stats=prep["tile_stats"],
-                             head_planes=prep["head_planes"])
+        if self._mesh is not None:
+            res = self._solve_on_mesh(prep)
+        else:
+            res = ov.oversegment(prep["vol"], flow=prep["flow"],
+                                 constraints=prep["constraints"],
+                                 init_label=prep["init_label"],
+                                 frozen=prep["frozen"],
+                                 fin=prep["tile_fin"],
+                                 params=prep["params"],
+                                 cell_stats=prep["tile_stats"],
+                                 head_planes=prep["head_planes"])
         self.solve_diag.append(res.diag)
         return res
+
+    def _solve_on_mesh(self, prep: dict) -> ov.OversegResult:
+        """The chunk solve through the mesh's banded solver
+        (parallel/mesh.sharded_chunk_solver), the optional inputs
+        materialized as in the JAX package.  Building the solver costs
+        nothing (eager ops), so unlike the JAX class none is cached."""
+        from video_segment_tpu_torch.parallel import mesh as pmesh
+
+        params = prep["params"]
+        has_flow = prep["flow"] is not None
+        has_constraints = prep["constraints"] is not None
+        use_cells = prep["tile_stats"] is not None
+        solver = pmesh.sharded_chunk_solver(
+            self._mesh, params, has_flow, has_constraints,
+            prep["head_planes"], use_cells)
+        return solver(*_materialize_solve_inputs(prep, self.frame_width))
 
     def _post_solve(self, prep: dict, res: ov.OversegResult,
                     flush: bool) -> list[SegFrame]:

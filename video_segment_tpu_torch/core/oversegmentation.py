@@ -1379,31 +1379,66 @@ def _make_band_fn(t: int, h: int, w: int, params: OversegParams,
     return band_fn
 
 
-def _solve_banded(vol, flow, init_label, constr_init, frozen_init, fin_init,
-                  params: OversegParams, thetas, level_rounds,
-                  has_constraints, cell_stats=None, head_planes: int = 0):
-    """Row-banded pixel phases + global table phases (OversegParams.bands).
-
-    Each band runs seed compaction and edge extraction on its own, one
-    band after another so that a single band's key planes are resident at
-    a time (`bands_vmap` asks the JAX package to map them at once for its
-    mesh; the result is the same and this port keeps the loop), with its
-    table slots mapped into a disjoint global range; a boundary pass
-    restores cross-band adjacency; the schedule, min-size and constraint
-    phases then run on the glued global table exactly as in the monolithic
-    solve."""
+def _band_phase(vol, flow, init_label, constr_init, frozen_init, fin_init,
+                params: OversegParams, has_constraints, cell_stats=None,
+                head_planes: int = 0, devices=None) -> list:
+    """The banded solve's pixel phase: per band, its `_make_band_fn`
+    outputs on vol's device.  Bands run one after another, so a band's key
+    planes are freed before the next starts; every band's outputs (table
+    state, membership, packed edge table, original roots) stay until
+    `_solve_banded` glues them.  With `devices` (one mesh row) band b runs
+    on devices[b // (B / len(devices))], contiguous blocks of bands a
+    device as shard_map splits them: its inputs are copied there and its
+    outputs gathered back.  The port ignores `bands_vmap`."""
     t, h, w, _ = vol.shape
-    B, bh, cap_b, nseg_b, G, nseg_g = _banded_dims(t, h, w, params)
-    dev = vol.device
+    B = params.bands
+    devices = list(devices) if devices is not None else [vol.device]
+    if B % len(devices):
+        raise ValueError(f"{B} bands do not split over a space axis of "
+                         f"{len(devices)} devices")
     band_fn = _make_band_fn(t, h, w, params, has_constraints, head_planes)
     split = _banded_split_inputs(vol, flow, init_label, constr_init,
                                  frozen_init, fin_init, params, cell_stats)
-    states, membs, tabs, origs = [], [], [], []
+    home = vol.device
+    outs = []
     for b in range(B):
-        args = [None if x is None
-                else (tuple(c[b] for c in x) if isinstance(x, tuple)
-                      else x[b]) for x in split]
-        ts_b, memb_b, tab_b, orig_g = band_fn(b, *args)
+        ts_b, memb_b, tab_b, orig_g = band_fn(
+            b, *_band_args(split, b, devices[b // (B // len(devices))]))
+        outs.append((SolverState(*[None if x is None else x.to(home)
+                                   for x in ts_b]),
+                     memb_b.to(home), tab_b.to(home), orig_g.to(home)))
+    return outs
+
+
+def _band_args(split, b: int, device) -> list:
+    """Band b's slice of `_banded_split_inputs`' output on `device`."""
+    return [None if x is None
+            else (tuple(c[b].to(device) for c in x) if isinstance(x, tuple)
+                  else x[b].to(device)) for x in split]
+
+
+def _solve_banded(vol, flow, init_label, constr_init, frozen_init, fin_init,
+                  params: OversegParams, thetas, level_rounds,
+                  has_constraints, cell_stats=None, head_planes: int = 0,
+                  band_outputs=None):
+    """Row-banded pixel phases + global table phases (OversegParams.bands).
+
+    Each band runs seed compaction and edge extraction on its own
+    (`_band_phase`), with its table slots mapped into a disjoint global
+    range; a boundary pass restores cross-band adjacency; the schedule,
+    min-size and constraint phases then run on the glued global table
+    exactly as in the monolithic solve.  A mesh caller (parallel/mesh.py)
+    supplies `band_outputs`, `_band_phase`'s result with each band run on
+    its own device: the global phases here are the same either way."""
+    t, h, w, _ = vol.shape
+    B, bh, cap_b, nseg_b, G, nseg_g = _banded_dims(t, h, w, params)
+    dev = vol.device
+    if band_outputs is None:
+        band_outputs = _band_phase(vol, flow, init_label, constr_init,
+                                   frozen_init, fin_init, params,
+                                   has_constraints, cell_stats, head_planes)
+    states, membs, tabs, origs = [], [], [], []
+    for b, (ts_b, memb_b, tab_b, orig_g) in enumerate(band_outputs):
         states.append(ts_b)
         membs.append(torch.where(memb_b == cap_b, G, memb_b + b * cap_b))
         tabs.append(tab_b[:, :cap_b])
@@ -1703,6 +1738,13 @@ def _check_scope(params: OversegParams) -> None:
                              "schedule")
 
 
+def _solve_schedule(params: OversegParams):
+    """(thetas, level_rounds) of params.schedule."""
+    thetas = [int(x) for x in params.schedule]
+    return thetas, ([params.max_rounds_per_level] * (len(thetas) - 1)
+                    + [params.max_final_rounds])
+
+
 def oversegment(vol, flow=None, constraints=None, init_label=None,
                 frozen=None, fin=None,
                 params: OversegParams = OversegParams(),
@@ -1740,9 +1782,7 @@ def oversegment(vol, flow=None, constraints=None, init_label=None,
             .to(torch.int32)
     else:
         fin_init = fin.reshape(n).to(torch.int32)
-    thetas = [int(x) for x in params.schedule]
-    level_rounds = ([params.max_rounds_per_level] * (len(thetas) - 1)
-                    + [params.max_final_rounds])
+    thetas, level_rounds = _solve_schedule(params)
     if not params.edge_table:
         return _solve_pixel(vol, None if flow is None
                             else flow.to(torch.float32), init_label,
