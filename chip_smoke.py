@@ -68,20 +68,20 @@ Phases (each prints one line; any failure exits non-zero):
     clips, flow off, async tails, each clip equal to its standalone run
     with the synchronous tail (K1 82, K2 6);
     seconds and fps of batch_segment --fused, sequential and
-    --concurrent 2;
-25. the off-default knobs, each a 41-frame 272x480 path with the
+    --concurrent 2 over the same clips;
+25. the off-default knobs, each a 21-frame 272x480 path with the
     full hierarchy, flow off, launch counts exact: the variance descriptor
-    and the gradient trait (K1 41, K2 3), the gradient trait with
+    and the gradient trait (K1 21, K2 2), the gradient trait with
     st_levels=3 and fine presegs (K3 0: the masked rounds, as the JAX
     package's gate), the two-stage solve, the gradient trait at 480x854 (2
-    bands: K2 6), windowed appearance (window 10: tables non-empty); the
+    bands: K2 4), windowed appearance (window 10: tables non-empty); the
     three dense knobs card vs CPU over 8 frames (boundary F); a windowed
     kill and resume over 30 frames (bitwise); seg_tree --solver_param
     gradient_trait=1 --region_param appearance_window_size=10
     --region_param save_descriptors=1 (one RegionFeatures per region on
     hierarchy frames);
 26. no module of the JAX package (video_segment_tpu) and no jax was
-    imported (checked at the end, after phase 28);
+    imported (checked at the end, after phase 30);
 27. the v1 pixel solver (OversegParams(edge_table=False)): SegmentStream
     over the 41-frame 272x480 clip, flow off, full hierarchy, with the
     felz presegs at ingest (K1 41, K2 0, K3 0, K4 0) and in flood mode (K4
@@ -98,10 +98,37 @@ Phases (each prints one line; any failure exits non-zero):
     timed (seconds, fps, peak MiB, launches); sharded_oversegment on a
     (2,2) mesh of cuda:0 against the single-device banded solve;
     sharded_presmooth (bilateral); fused_oversegment over 2 clips;
-    dryrun_multichip(4).
-Phases 19-23, 25's and 27's seg_tree runs decode with cv2 and write with
-protobuf; where either is missing one line names it and the phases left
-out.
+    dryrun_multichip(4); then a (1,2) mesh of cuda:0 and the CPU, so
+    that every transfer is real: the stream and sharded_chunk_solver raise
+    no device mismatch, return on cuda:0, each band's outputs equal a
+    single-device band phase on that band's device (band 1 on the CPU,
+    the plain K2), the glued labels reach boundary F >= 0.9 against a
+    mesh of cuda:0 alone, and halo_exchange_rows and sharded_presmooth
+    equal the single-device versions;
+29. bench config 4: the 40-frame clip upscaled to 720x1280 as bench.py
+    upscales its clip, through bench.py's threaded stage chain built from
+    the port (flow | dense with async tail | region, queue 10, each
+    SegFrame encoded into a SegmentationWriter), flow off, after a warm
+    pass over the same frames: 3 bands and 16 pad rows, K1 40 and K2 9
+    exactly, 40 frames in order in the .pb; fps, stage seconds, peak
+    memory, regions per chunk set; from the warm pass (the size records
+    stay out of the timed pass), each solve's seeds per band, glued table
+    and constraint ids;
+    the dense stage in 3 forced bands card vs CPU over 5 frames (boundary
+    F); K1 per padded frame and K2 per band at this geometry against
+    their plain versions, with times and bounds;
+30. bench config 5: two 21-frame clips (seeds 0 and 1; the bench runs 40)
+    upscaled to 1080x1920; BatchDenseSegmentation over both, each clip
+    equal to its standalone run at the halved budget the batch gives it
+    (bands, launch counts exact); then, timed together, batch_segment
+    --fused --no-flow over both clips as MJPG .avi files and the renderer
+    at render level 0.1 on each .pb: launch counts exact, each .pb read
+    back with a hierarchy, each video non-empty; fps, the renderer's
+    seconds and peak memory; the same table sizes from a second, untimed
+    batch_segment pass; K1 and K2 at this geometry as in 29.
+Phases 19-23, 25's and 27's seg_tree runs, 29 and 30 decode or resize
+with cv2 and write with protobuf; where either is missing one line names
+it and the phases left out.
 Then a JSON line of per-kernel results (time, launches on the main path,
 bound, plain and library times), the card's name and power limit from
 nvidia-smi, and the final {"ok": true, ...} line.
@@ -128,6 +155,9 @@ BH, BW = 854, 480    # the banded path: bench config 3's geometry
 N_FRAMES = 60
 N_PATH_FRAMES = 41   # the flood and supertile paths: 3 chunk solves
 N_SHORT_FRAMES = 21  # seg_tree at 480x854, the deterministic pair: 2 solves
+C4_W, C4_H = 720, 1280    # bench config 4 (bench.py's scale_to)
+C5_W, C5_H = 1080, 1920   # bench config 5
+N_BENCH_FRAMES = 40       # bench.py's frames at configs 4 and 5
 KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table")
 
 # Peak rates of one H100 SXM for the bounds: HBM bytes/s and non-tensor
@@ -344,29 +374,18 @@ def resource_line(name: str, ctas: int) -> str:
 def k1_bound(vol: torch.Tensor, kw: dict) -> tuple:
     """K1's bound on one volume: 12 bytes read and 24 written per pixel;
     10 float32 operations per in-tile edge for the buckets, and 8 float64
-    operations per gate test, counting in every scan the edges whose
-    bucket is at most the level's threshold (an upper bound of the tests
-    the labels leave)."""
+    operations per merge test that this volume's labels leave, counted
+    scan by scan in the plain version."""
     from video_segment_tpu_torch.ops import tile_felz as tf
     t, h, w, _ = vol.shape
-    col = tf._to_tiles(vol.float())
     inb = tf._to_tiles(torch.ones((t, h, w), dtype=torch.bool,
                                   device=vol.device), fill=False)
     nbr, inside = tf._neighbors(vol.device)
-    bkts = []
-    for k in range(len(tf.DIRS)):
-        q = nbr[k]
-        d = tf._dist32(col, col[:, q], kw["metric"])
-        b = torch.clamp((d * tf.NUM_BUCKETS).to(torch.int32), 0,
-                        tf.NUM_BUCKETS - 1)
-        valid = inb & inb[:, q] & inside[k][None]
-        bkts.append(torch.where(valid, b, tf.NUM_BUCKETS))
-    bkts = torch.stack(bkts)
-    rounds = tf._rounds(kw["schedule"], kw["rounds_per_level"])
-    tests = sum((r + 1) * int((bkts <= th).sum())
-                for th, r in zip(kw["schedule"], rounds))
-    n_edges = int((bkts < tf.NUM_BUCKETS).sum())
-    return bound(36 * t * h * w, {"f32": 10 * n_edges, "f64": 8 * tests})
+    n_edges = sum(int((inb & inb[:, nbr[k]] & inside[k][None]).sum())
+                  for k in range(len(tf.DIRS)))
+    tests = []
+    tf.tile_felzenszwalb_plain(vol, **kw, gate_tests=tests)
+    return bound(36 * t * h * w, {"f32": 10 * n_edges, "f64": 8 * sum(tests)})
 
 
 def reset_launches(*wrappers) -> None:
@@ -658,6 +677,197 @@ def file_bytes(path: str) -> bytes:
         return f.read()
 
 
+def upscale(frames, w: int, h: int) -> list:
+    """Frames resized to w x h as bench.py resizes its clip (bicubic)."""
+    import cv2
+    return [cv2.resize(f, (w, h), interpolation=cv2.INTER_CUBIC)
+            for f in frames]
+
+
+@contextlib.contextmanager
+def size_records():
+    """The sizes that bound configs 4 and 5, recorded inside the block:
+    per chunk solve of every DenseSegmentation, its temporal extent,
+    bands, each band's seed count, the size of its edge table (the glued
+    global table of a banded solve, which `_MAX_TABLE` bounds) and its
+    constraint ids (which `max_constraints` bounds); per chunk set of
+    every RegionSegmentation, its over-segmentation regions and the rows
+    of the dense tables `agglomerate` holds on the device (the next power
+    of two: (rows, bins) float32 colour histograms) and of its edge list.
+    Each record also holds the device's peak allocation after the call
+    where the call raised it (None where it did not): where the run's
+    peak memory was reached."""
+    from video_segment_tpu_torch.core import agglomeration
+    from video_segment_tpu_torch.core import oversegmentation as ov
+    from video_segment_tpu_torch.core.dense import DenseSegmentation
+    rec = {"solves": [], "sets": []}
+    saved = DenseSegmentation._dispatch_solve, agglomeration.agglomerate
+
+    def peak_raised(fn, *args, **kw):
+        before = torch.cuda.max_memory_allocated()
+        out = fn(*args, **kw)
+        after = torch.cuda.max_memory_allocated()
+        return out, (after / 2**20 if after > before else None)
+
+    def recording(self, prep):
+        p = prep["params"]
+        t, hp, w = prep["t_solve"], prep["hp"], self.frame_width
+        init = prep["init_label"].reshape(-1)
+        roots = init == torch.arange(init.numel(), dtype=init.dtype,
+                                     device=init.device)
+        seeds = roots.reshape(t, p.bands, hp // p.bands, w).sum(
+            dim=(0, 2, 3)).tolist()
+        table = (ov._banded_dims(t, hp, w, p)[5] if p.bands > 1 else
+                 ov._table_cap(p, t * hp * w, hp, w,
+                               prep["constraints"] is not None) + 1)
+        res, peak = peak_raised(saved[0], self, prep)
+        rec["solves"].append(dict(t_solve=t, bands=p.bands, seeds=seeds,
+                                  table=table,
+                                  constraints=len(prep["cid_to_gid"]),
+                                  peak=peak))
+        return res
+
+    def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions,
+                    **kw):
+        out, peak = peak_raised(saved[1], hist, flow_hist, flow_cnt, sizes,
+                                edges, num_regions, **kw)
+        rec["sets"].append(dict(regions=num_regions, rows=hist.shape[0],
+                                bins=hist.shape[1], edge_rows=len(edges),
+                                peak=peak))
+        return out
+
+    DenseSegmentation._dispatch_solve = recording
+    agglomeration.agglomerate = agglomerate
+    try:
+        yield rec
+    finally:
+        DenseSegmentation._dispatch_solve, agglomeration.agglomerate = saved
+
+
+def size_summary(rec) -> str:
+    from video_segment_tpu_torch.core import oversegmentation as ov
+    limit = ov.OversegParams().max_constraints
+
+    def peak(r):
+        return ("" if r["peak"] is None else
+                f"; the device's peak rose to {r['peak']:.1f} MiB in it")
+
+    return "; ".join(
+        [f"solve {i} (t_solve {r['t_solve']}, {r['bands']} bands): seeds per "
+         f"band {r['seeds']}, table {r['table']} of {ov._MAX_TABLE} "
+         f"({'22' if r['table'] > 1 << 20 else '20'}-bit partners), "
+         f"constraint ids {r['constraints']} of {limit}{peak(r)}"
+         for i, r in enumerate(rec["solves"])]
+        + [f"chunk set {i}: {r['regions']} over-segmentation regions, "
+           f"agglomerate's tables {r['rows']} rows ({r['rows']} x "
+           f"{r['bins']} float32 = {r['rows'] * r['bins'] * 4 / 2**30:.2f} GiB"
+           f" a histogram table), {r['edge_rows']} edge rows{peak(r)}"
+           for i, r in enumerate(rec["sets"])])
+
+
+def k1_case(vol: torch.Tensor, k1_kw: dict) -> dict:
+    """K1 against its plain version on `vol` (bit for bit), and its time
+    (launches back to back) and bound there."""
+    from video_segment_tpu_torch.ops import tile_felz as tf
+    got = tf.tile_felzenszwalb(vol, **k1_kw)
+    want = tf.tile_felzenszwalb_plain(vol, **k1_kw)
+    for a, b in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K1 differs from its plain version at "
+                                 f"{tuple(vol.shape[:3])}")
+    b_ms, by = k1_bound(vol, k1_kw)
+    return dict(shape=list(vol.shape[:3]),
+                ms=device_ms(lambda: tf.tile_felzenszwalb(vol, **k1_kw), 50),
+                bound_ms=b_ms, bound_by=by)
+
+
+def k2_band_case(rng, gen, k1_kw: dict, bh: int, bw: int,
+                 t_solve: int = 21) -> dict:
+    """K2 against its plain version at one band's shape (13, t_solve, bh,
+    bw): K1 labels of textured frames, random packed keys (30% empty).
+    Returns the kernel's time (launches back to back), the plain
+    version's, and the bound."""
+    from video_segment_tpu_torch.core import oversegmentation as ov
+    from video_segment_tpu_torch.ops import tile_extract as te
+    from video_segment_tpu_torch.ops import tile_felz as tf
+    dev = torch.device("cuda", 0)
+    lab = tf.tile_felzenszwalb(torch.from_numpy(
+        textured(rng, (3, bh, bw), 1.5)).to(dev), **k1_kw)[0]
+    lab = torch.cat([lab] * -(-t_solve // 3))[:t_solve]
+    yx = lab % (bh * bw)
+    labr = ((yx // bw) % tf.TILE_H).to(torch.int32).contiguous()
+    labc = (yx % bw % tf.TILE_W).to(torch.int32).contiguous()
+    keys = torch.randint(0, 2046 << 20, (13, t_solve, bh, bw), generator=gen,
+                         dtype=torch.int32, device=dev)
+    keys[torch.rand(keys.shape, generator=gen, device=dev) < 0.3] = \
+        ov.I32MAX
+    if not torch.equal(te.tile_reduce_min(labr, labc, keys),
+                       te.tile_reduce_min_plain(labr, labc, keys)):
+        raise AssertionError(f"K2 differs from its plain version at the "
+                             f"band shape {tuple(keys.shape)}")
+    b_ms, by = bound(2 * keys.numel() * 4 + 2 * labr.numel() * 4,
+                     {"i32": keys.numel()})
+    return dict(shape=list(keys.shape),
+                ms=device_ms(lambda: te.tile_reduce_min(labr, labc, keys),
+                             30),
+                plain_ms=cuda_ms(
+                    lambda: te.tile_reduce_min_plain(labr, labc, keys), 3),
+                bound_ms=b_ms, bound_by=by)
+
+
+def kernel_summary(k1: dict, k2: dict) -> str:
+    return (f"K1 per padded frame {tuple(k1['shape'])}: {k1['ms']:.4f} ms, "
+            f"equal to its plain version; bound {k1['bound_ms'] * 1e3:.1f} "
+            f"us ({k1['bound_by']}); K2 per band {tuple(k2['shape'])}: "
+            f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, equal; bound "
+            f"{k2['bound_ms'] * 1e3:.1f} us ({k2['bound_by']}), "
+            f"{100 * k2['bound_ms'] / k2['ms']:.1f}% of it")
+
+
+def bench_chain(frames, w: int, h: int, out_path: str) -> tuple:
+    """bench.py's stage chain (`run_pipeline`, flow off) built from the
+    port's modules: flow | dense (async tail) | region stages in threads
+    of their own, queues of 10, and the consumer encoding each SegFrame
+    (`emit.segframe_to_bytes`, no vectorization) into a SegmentationWriter
+    at `out_path`, a new container chunk at each chunk set.  Returns (frame
+    indices in emission order, regions per level of each chunk set, the
+    dense stage, the region stage)."""
+    from video_segment_tpu_torch import api
+    from video_segment_tpu_torch.core import dense, region
+    from video_segment_tpu_torch.dataio import emit, seg_io
+    from video_segment_tpu_torch.runtime import pipeline as pl
+    ds = dense.DenseSegmentation(api.DenseSegmentationOptions(
+        async_tail=True), w, h, device="cuda")
+    rs = region.RegionSegmentation(api.RegionSegmentationOptions(
+        use_flow=False), w, h, device="cuda")
+
+    def flow_stage(item):
+        idx, frame = item
+        rs.add_frame(idx, frame, None)
+        return [(frame, None)]
+
+    stages = [pl.Stage("flow", flow_stage),
+              pl.Stage("dense", lambda pair: ds.process_frame(False, *pair),
+                       flush=lambda: ds.process_frame(True)),
+              pl.Stage("region", lambda sf: rs.process_frames(False, [sf]),
+                       flush=lambda: rs.process_frames(True, []))]
+    writer = seg_io.SegmentationWriter(out_path)
+    if not writer.open_file(header_flags=[0, 1]):
+        raise AssertionError(f"cannot write {out_path}")
+    order, sets = [], []
+    for sf in pl.Pipeline(stages, queue_size=10).run(enumerate(frames)):
+        if sf.hierarchy is not None:
+            if order:
+                writer.write_chunk()
+            sets.append([len(lv.ids) for lv in sf.hierarchy])
+        writer.add_to_chunk(emit.segframe_to_bytes(sf),
+                            pts=sf.frame_index * 100)
+        order.append(sf.frame_index)
+    writer.write_term_and_close()
+    ds.join()
+    return order, sets, ds, rs
+
+
 def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
     """Phases 19-23: the command-line tools on the card, in `tmp`.
     Returns the launch counts (K1, K2, K4, K3 of the supertile run) of
@@ -852,29 +1062,34 @@ def signature(frames_out) -> list:
               for lv in sf.hierarchy]) for sf in frames_out]
 
 
-def fused_phase(tmp, clips, n_solves, with_cli) -> tuple:
-    """Phase 24: the fused multi-clip batch fed from arrays, each clip
-    against its standalone run; then (with cv2 and protobuf) the three
-    modes of batch_segment over the same clips as .avi files.  Returns the
-    fused run's launch counts."""
+def fused_vs_standalone(clips, phase: str) -> tuple:
+    """The fused multi-clip batch (BatchDenseSegmentation, async tails) fed
+    from arrays, under deterministic algorithms, each clip against its
+    standalone DenseSegmentation (synchronous tail) at the per-clip budget
+    the batch gives it (max_solve_voxels // clips, so the same bands):
+    RLE and hierarchies equal bit for bit, launches K1 one a frame and K2
+    one a band a chunk solve.  Returns (the fused run's launch counts, the
+    batch)."""
     from video_segment_tpu_torch import api
     from video_segment_tpu_torch.core import batch, dense
-    n = len(clips[0])
+    n, n_clips = len(clips[0]), len(clips)
     h, w = clips[0][0].shape[:2]
+    n_solves = expected_chunk_solves(n, 20)
+    budget = api.DenseSegmentationOptions().max_solve_voxels // n_clips
 
     def standalone(clip_frames):
-        ds = dense.DenseSegmentation(api.DenseSegmentationOptions(), w, h,
-                                     device="cuda")
+        ds = dense.DenseSegmentation(api.DenseSegmentationOptions(
+            max_solve_voxels=budget), w, h, device="cuda")
         res = []
         for fr in clip_frames:
             res += ds.process_frame(False, fr)
-        return res + ds.process_frame(True)
+        return res + ds.process_frame(True), ds._bands
 
     with deterministic():
         singles = [standalone(c) for c in clips]
         reset_launches(*kernel_wrappers())
         bd = batch.BatchDenseSegmentation(
-            api.DenseSegmentationOptions(async_tail=True), w, h, len(clips),
+            api.DenseSegmentationOptions(async_tail=True), w, h, n_clips,
             device="cuda")
         fused = [[] for _ in clips]
         for step in range(n):
@@ -885,23 +1100,40 @@ def fused_phase(tmp, clips, n_solves, with_cli) -> tuple:
             fused[i] += sfs
         torch.cuda.synchronize()
         counts = launch_counts()
+    bands = bd.clips[0]._bands
     for i, ds in enumerate(bd.clips):
         if ds.device.type != "cuda":
-            raise AssertionError("fused batch: a clip ran off the card")
+            raise AssertionError(f"{phase}: a clip ran off the card")
         if len(ds.solve_diag) != n_solves:
-            raise AssertionError(f"fused batch: {len(ds.solve_diag)} "
+            raise AssertionError(f"{phase}: {len(ds.solve_diag)} "
                                  f"solve_diag entries, want {n_solves}")
-        if signature(fused[i]) != signature(singles[i]):
-            raise AssertionError(f"fused batch: clip {i} differs from its "
+        if ds._bands != singles[i][1]:
+            raise AssertionError(f"{phase}: clip {i} in {ds._bands} bands, "
+                                 f"its standalone run in {singles[i][1]}")
+        if signature(fused[i]) != signature(singles[i][0]):
+            raise AssertionError(f"{phase}: clip {i} differs from its "
                                  "standalone run")
-    want = (len(clips) * n, len(clips) * n_solves, 0, 0)
+    want = (n_clips * n, n_clips * bands * n_solves, 0, 0)
     if counts != want:
-        raise AssertionError(f"fused batch launches K1/K2/K4/K3 {counts}, "
-                             f"want {want}")
-    log("fused", f"{len(clips)} clips x {n} frames {w}x{h}, flow off, async "
-        f"tails: each clip's RLE and level-0 hierarchy equal its standalone "
-        f"run's bit for bit (deterministic algorithms); groups per step "
-        f"{bd.group_sizes}; launches K1 {counts[0]} K2 {counts[1]}")
+        raise AssertionError(f"{phase}: fused batch launches K1/K2/K4/K3 "
+                             f"{counts}, want {want}")
+    log(phase, f"{n_clips} clips x {n} frames {w}x{h}, flow off, async "
+        f"tails, {bands} band(s) of {(h + bd.clips[0]._pad_rows) // bands} "
+        f"rows a clip at the per-clip budget {budget}: each clip's RLE and "
+        f"level-0 hierarchy equal its standalone run's bit for bit "
+        f"(deterministic algorithms); groups per step {bd.group_sizes}; "
+        f"launches K1 {counts[0]} K2 {counts[1]}")
+    return counts, bd
+
+
+def fused_phase(tmp, clips, with_cli) -> tuple:
+    """Phase 24: the fused multi-clip batch fed from arrays, each clip
+    against its standalone run; then (with cv2 and protobuf) the three
+    modes of batch_segment over the same clips as .avi files.  Returns the
+    fused run's launch counts."""
+    counts, _ = fused_vs_standalone(clips, "fused")
+    n = len(clips[0])
+    want = (len(clips) * n, len(clips) * expected_chunk_solves(n, 20), 0, 0)
     if with_cli:
         from video_segment_tpu_torch.tools import batch_segment
         vids = [write_avi(os.path.join(tmp, f"clip{i}.avi"), c)
@@ -922,18 +1154,21 @@ def fused_phase(tmp, clips, n_solves, with_cli) -> tuple:
     return counts
 
 
-def knobs_phase(tmp, frames_p, frames_b, n_solves, with_cli) -> dict:
+def knobs_phase(tmp, frames_p, frames_b, with_cli) -> dict:
     """Phase 25: the off-default solver and region knobs on the card, each
-    path through the entry points with its launch counts exact, then the
-    dense knobs card vs CPU, a windowed kill and resume, and (with cv2 and
-    protobuf) seg_tree with the knob flags.  Returns {path: (K1, K2, K4,
-    K3) launches}."""
+    path through the entry points over the first 21 frames with its launch
+    counts exact, then the dense knobs card vs CPU, a windowed kill and
+    resume over 30 frames, and (with cv2 and protobuf) seg_tree with the
+    knob flags over 21 frames.  Returns {path: (K1, K2, K4, K3)
+    launches}."""
     from video_segment_tpu_torch import api
     from video_segment_tpu_torch.core import dense, region
     from video_segment_tpu_torch.core import oversegmentation as ov
     from video_segment_tpu_torch.runtime import checkpoint
     dev = torch.device("cuda", 0)
-    n = len(frames_p)
+    n = N_SHORT_FRAMES
+    n_solves = expected_chunk_solves(n, 20)
+    frames_s, frames_bs = frames_p[:n], frames_b[:n]
     variance = ov.OversegParams(descriptor="color_mean_variance",
                                 merge_threshold=0.1, split_threshold=0.75)
     gradient = ov.OversegParams(gradient_trait=True)
@@ -944,13 +1179,13 @@ def knobs_phase(tmp, frames_p, frames_b, n_solves, with_cli) -> dict:
                                              appearance_window_size=10)
     want = (n, n_solves, 0, 0)
     counts = {}
-    paths = (("variance", frames_p, None, variance, None, want),
-             ("gradient", frames_p, None, gradient, None, want),
-             ("gradient+supertile gate", frames_p, None, gated, None, want),
-             ("two-stage", frames_p, two_stage, None, None, want),
-             ("gradient banded", frames_b, None, gradient, None,
+    paths = (("variance", frames_s, None, variance, None, want),
+             ("gradient", frames_s, None, gradient, None, want),
+             ("gradient+supertile gate", frames_s, None, gated, None, want),
+             ("two-stage", frames_s, two_stage, None, None, want),
+             ("gradient banded", frames_bs, None, gradient, None,
               (n, 2 * n_solves, 0, 0)),
-             ("windowed", frames_p, None, None, windowed, want))
+             ("windowed", frames_s, None, None, windowed, want))
     for name, frames, dopts, params, ropts, want_c in paths:
         h, w = frames[0].shape[:2]
         reset_launches(*kernel_wrappers())
@@ -1045,7 +1280,7 @@ def knobs_phase(tmp, frames_p, frames_b, n_solves, with_cli) -> dict:
         from video_segment_tpu_torch import proto
         from video_segment_tpu_torch.dataio import seg_io
         from video_segment_tpu_torch.tools import seg_tree
-        clip = write_avi(os.path.join(tmp, "knobs.avi"), frames_p)
+        clip = write_avi(os.path.join(tmp, "knobs.avi"), frames_s)
         run = run_cli(seg_tree.main, [
             "--input_file", clip, "--no-flow", "--write_to_file",
             "--max_rate", "0", "--no-dynamic_rate", "--solver_param",
@@ -1305,8 +1540,304 @@ def mesh_phase(frames_p) -> dict:
     t0 = time.monotonic()
     entry.dryrun_multichip(4)
     log("mesh", f"dryrun_multichip(4) passed ({time.monotonic() - t0:.1f}s)")
+    mixed_mesh_check(frames)
     log("mesh", f"phase 28 took {time.monotonic() - t_phase:.1f}s")
     return {"mesh": run_m["launches"], "timed": timed}
+
+
+def config4_phase(tmp, k1_kw: dict) -> dict:
+    """Phase 29: bench config 4 on the card (see the module docstring).
+    Returns the timed pass's launch counts and the kernels' cases at this
+    geometry."""
+    from video_segment_tpu_torch import api
+    from video_segment_tpu_torch.core import dense
+    dev = torch.device("cuda", 0)
+    t_phase = time.monotonic()
+    frames = upscale(synthetic_clip(N_BENCH_FRAMES, seed=0), C4_W, C4_H)
+    n = len(frames)
+    with size_records() as sizes:
+        t0 = time.monotonic()
+        bench_chain(frames, C4_W, C4_H, os.path.join(tmp, "config4_warm.pb"))
+        warm_s = time.monotonic() - t0
+
+    pb = os.path.join(tmp, "config4.pb")
+    reset_launches(*kernel_wrappers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    order, sets, ds, rs = bench_chain(frames, C4_W, C4_H, pb)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_solves = expected_chunk_solves(n, 20)
+    if (ds._bands, ds._pad_rows) != (3, 16):
+        raise AssertionError(f"config 4: (bands, pad rows) "
+                             f"{(ds._bands, ds._pad_rows)}, want (3, 16)")
+    if counts != (n, 3 * n_solves, 0, 0):
+        raise AssertionError(f"config 4: launches K1/K2/K4/K3 {counts}, want "
+                             f"{(n, 3 * n_solves, 0, 0)}")
+    if order != list(range(n)):
+        raise AssertionError(f"config 4: frames emitted as {order}")
+    imgs, hier_at = read_pb(pb)
+    if imgs.shape != (n, C4_H, C4_W):
+        raise AssertionError(f"config 4: the .pb holds {imgs.shape}")
+    stages = {k: round(v, 3) for k, v in
+              {**ds.stage_seconds, **rs.stage_seconds}.items()}
+    log("config4", f"{n} frames {C4_W}x{C4_H} (the {W}x{H} clip upscaled), "
+        f"flow off, bench.py's stage chain: {wall:.2f}s = {n / wall:.3f} fps "
+        f"(the warm pass over the same frames, with the size records, "
+        f"{warm_s:.1f}s); stage "
+        f"seconds (threads, not additive) {stages}; peak device memory "
+        f"{peak / 2**20:.1f} MiB; {ds._bands} bands of "
+        f"{(C4_H + ds._pad_rows) // ds._bands} rows, {ds._pad_rows} pad rows; "
+        f"hierarchy regions per level of each chunk set {sets}; .pb read "
+        f"back: {n} frames, hierarchies at {hier_at}; launches K1/K2/K4/K3 "
+        f"{counts}")
+    log("config4", "the warm pass's sizes: " + size_summary(sizes))
+
+    forced = dense.DenseSegmentation(api.DenseSegmentationOptions(
+        solver_bands=3), C4_W, C4_H, device="cpu")
+    if (forced._bands, forced._pad_rows) != (3, 16):
+        raise AssertionError("config 4 card vs CPU: not 3 bands, 16 pad rows")
+    t0 = time.monotonic()
+    fm, n_reg, _ = dense_card_vs_cpu(frames[:5], api.DenseSegmentationOptions(
+        solver_bands=3))
+    log("config4", f"card vs CPU: 5 frames, one flush chunk (t_solve 5) in 3 "
+        f"forced bands, 16 pad rows: boundary F {fm:.4f} (regions {n_reg}; "
+        f"{time.monotonic() - t0:.1f}s)")
+    if fm < 0.9:
+        raise AssertionError(f"config 4: card vs CPU boundary F {fm:.4f} "
+                             "< 0.9")
+
+    hp = C4_H + ds._pad_rows
+    k1 = k1_case(ds.preprocess(frames[0])[None].contiguous(), k1_kw)
+    k2 = k2_band_case(np.random.default_rng(29),
+                      torch.Generator(device=dev).manual_seed(29), k1_kw,
+                      hp // ds._bands, C4_W)
+    log("config4", kernel_summary(k1, k2))
+    log("config4", f"phase 29 took {time.monotonic() - t_phase:.1f}s")
+    return dict(counts=counts, k1=k1, k2=k2)
+
+
+def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
+    """Phase 30: bench config 5 on the card (see the module docstring),
+    over `n_frames` frames a clip in the timed pass.  Returns its launch
+    counts and the kernels' cases at this geometry."""
+    from video_segment_tpu_torch.tools import batch_segment, renderer
+    dev = torch.device("cuda", 0)
+    t_phase = time.monotonic()
+    clips = [upscale(synthetic_clip(n_frames, seed=seed), C5_W, C5_H)
+             for seed in (0, 1)]
+    _, bd = fused_vs_standalone([c[:N_SHORT_FRAMES] for c in clips],
+                                "config5")
+    bands, pad = bd.clips[0]._bands, bd.clips[0]._pad_rows
+    del bd
+
+    vids = [write_avi(os.path.join(tmp, f"config5_clip{i}.avi"), c)
+            for i, c in enumerate(clips)]
+    out_dir = os.path.join(tmp, "config5")
+    n_solves = expected_chunk_solves(n_frames, 20)
+    want = (2 * n_frames, 2 * bands * n_solves, 0, 0)
+    t0 = time.monotonic()
+    run = run_cli(batch_segment.main, [*vids, "--fused", "--no-flow",
+                                       "--output_dir", out_dir], want)
+    t1 = time.monotonic()
+    pbs = [os.path.join(out_dir, f"{i:03d}_{os.path.basename(v)}.pb")
+           for i, v in enumerate(vids)]
+    mp4s = [pb + "_render.mp4" for pb in pbs]
+    for pb, mp4 in zip(pbs, mp4s):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = renderer.main(["--input", pb, "--render_level", "0.1",
+                                "--output_video", mp4])
+        if rc not in (0, None):
+            raise AssertionError(f"renderer failed on {pb}: {rc}")
+    t2 = time.monotonic()
+    stats = json.loads(run["text"].strip().splitlines()[-1])
+    batches = run["made"]["batch"]
+    if len(batches) != 1 or [c._bands for c in batches[0].clips] != \
+            [bands] * 2:
+        raise AssertionError(f"config 5: batch_segment's clips are not in "
+                             f"{bands} bands")
+    dense_s = [{k: round(v, 3) for k, v in c.stage_seconds.items()}
+               for c in batches[0].clips]
+    region_s = [round(r.stage_seconds["region"], 3)
+                for r in run["made"]["region"]]
+    regions = []
+    for pb, mp4 in zip(pbs, mp4s):
+        imgs, _ = read_pb(pb)
+        if imgs.shape != (n_frames, C5_H, C5_W):
+            raise AssertionError(f"config 5: {pb} holds {imgs.shape}")
+        regions.append(len(np.unique(imgs)))
+        if not os.path.exists(mp4) or os.path.getsize(mp4) == 0:
+            raise AssertionError(f"config 5: {mp4} is empty")
+    log("config5", f"2 clips x {n_frames} frames {C5_W}x{C5_H} (the {W}x{H} "
+        f"clip upscaled, seeds 0 and 1), batch_segment --fused --no-flow, "
+        f"then the renderer at render level 0.1 on each .pb: "
+        f"{2 * n_frames} frames in {t2 - t0:.2f}s = "
+        f"{2 * n_frames / (t2 - t0):.3f} fps; batch_segment {t1 - t0:.2f}s "
+        f"({stats['fps']} fps by its own clock; .pb encoding "
+        f"{sum(run['made']['emit']):.3f}s), the renderer {t2 - t1:.2f}s "
+        f"(videos {[os.path.getsize(m) for m in mp4s]} B); peak device memory "
+        f"{run['peak'] / 2**20:.1f} MiB; {bands} bands a clip, {pad} pad "
+        f"rows; dense stage seconds {dense_s}; region {region_s}; launches "
+        f"K1/K2/K4/K3 {run['counts']}; each .pb read back with "
+        f"{n_frames} frames and a hierarchy, level-0 regions per clip "
+        f"{regions}")
+    with size_records() as sizes:
+        run_cli(batch_segment.main, [*vids, "--fused", "--no-flow",
+                                     "--output_dir", out_dir + "_sizes"],
+                want)
+    log("config5", "an untimed second batch_segment pass's sizes: "
+        + size_summary(sizes))
+
+    k1 = k1_case(batches[0].clips[0].preprocess(clips[0][0])[None]
+                 .contiguous(), k1_kw)
+    k2 = k2_band_case(np.random.default_rng(30),
+                      torch.Generator(device=dev).manual_seed(30), k1_kw,
+                      (C5_H + pad) // bands, C5_W)
+    log("config5", kernel_summary(k1, k2))
+    log("config5", f"phase 30 took {time.monotonic() - t_phase:.1f}s")
+    return dict(counts=run["counts"], k1=k1, k2=k2)
+
+
+def band_leaves(out) -> list:
+    """The tensors of one band's `_band_phase` output, in a fixed order."""
+    state, memb, tab, orig = out
+    return [x for x in state if x is not None] + [memb, tab, orig]
+
+
+def mixed_mesh_check(frames, options=None) -> None:
+    """Phase 28, second part: a (1,2) mesh of cuda:0 and the CPU, where
+    every transfer of the mesh code is real (on a mesh of one device each
+    `.to()` is a no-op).  The DenseSegmentation stream over `frames` and
+    `sharded_chunk_solver` on its constrained chunk raise no device
+    mismatch and return every result on cuda:0; each band's outputs equal
+    a single-device `_band_phase` on that band's device (band 1 on the
+    CPU, the plain K2); the glued labels reach boundary F >= 0.9 against
+    a mesh of cuda:0 alone (F3: band 1's float sums ran on the CPU); and
+    `halo_exchange_rows` and `sharded_presmooth` equal the single-device
+    versions.  The comparisons run under deterministic algorithms.
+    `options` are the stream's DenseSegmentationOptions (the defaults
+    where None); its second chunk solve must be constrained."""
+    from video_segment_tpu_torch import api
+    from video_segment_tpu_torch.core import dense
+    from video_segment_tpu_torch.core import oversegmentation as ov
+    from video_segment_tpu_torch.ops import filters
+    from video_segment_tpu_torch.parallel import mesh as pmesh
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    t_check = time.monotonic()
+    h, w = frames[0].shape[:2]
+    options = options or api.DenseSegmentationOptions()
+    mixed = pmesh.Mesh([[dev, cpu]])
+    same = pmesh.Mesh([[dev, dev]])
+
+    def on_card(x, what):
+        for v in (x if isinstance(x, (tuple, list)) else [x]):
+            if isinstance(v, torch.Tensor) and v.device != dev:
+                raise AssertionError(f"mixed mesh: {what} on {v.device}")
+
+    def stream(mesh):
+        ds = dense.DenseSegmentation(options, w, h, mesh=mesh)
+        preps, solve = [], ds._dispatch_solve
+
+        def recording(prep):
+            res = solve(prep)
+            on_card(res, "a chunk solve's result")
+            preps.append(prep)
+            return res
+
+        ds._dispatch_solve = recording
+        out = []
+        for fr in frames:
+            out += ds.process_frame(False, fr)
+        out += ds.process_frame(True)
+        return out, preps
+
+    with deterministic():
+        out_x, preps = stream(mixed)
+        out_s, _ = stream(same)
+    fm_stream = boundary_f(rasterize(out_x), rasterize(out_s))
+
+    # The constrained chunk (the second solve) through the solver and its
+    # band phase alone.
+    prep = preps[1]
+    p, heads = prep["params"], prep["head_planes"]
+    has_c, use_cells = (prep["constraints"] is not None,
+                        prep["tile_stats"] is not None)
+    if not has_c:
+        raise AssertionError("mixed mesh: the second chunk solve is not "
+                             "constrained")
+    inputs = dense._materialize_solve_inputs(prep, w)
+    vol, _, init, constr, frozen, fin, cells = inputs
+    t, hp = vol.shape[:2]
+    nv = t * hp * w
+
+    def band_phase(devices, home):
+        flat = [x.reshape(nv).to(home) for x in (init, constr, frozen, fin)]
+        cf = tuple(c.reshape(nv).to(home) for c in cells) if use_cells \
+            else None
+        return ov._band_phase(vol.to(home), None, *flat, p, has_c, cf, heads,
+                              devices=devices)
+
+    with deterministic():
+        outs_x = band_phase([dev, cpu], dev)
+        outs_card = band_phase([dev], dev)
+        outs_cpu = band_phase([cpu], cpu)
+        res_x = pmesh.sharded_chunk_solver(mixed, p, False, has_c, heads,
+                                           use_cells)(*inputs)
+        res_s = pmesh.sharded_chunk_solver(same, p, False, has_c, heads,
+                                           use_cells)(*inputs)
+    if len(outs_x) != 2:
+        raise AssertionError(f"mixed mesh: {len(outs_x)} bands, want 2")
+    for b, (got, want) in enumerate(zip(outs_x, (outs_card[0],
+                                                 outs_cpu[1]))):
+        on_card(band_leaves(got), f"band {b}'s gathered outputs")
+        for a, c in zip(band_leaves(got), band_leaves(want)):
+            if not torch.equal(a.cpu(), c.cpu()):
+                raise AssertionError(f"mixed mesh: band {b}'s outputs differ "
+                                     f"from its single-device band phase")
+    on_card(res_x, "sharded_chunk_solver's result")
+    fm_solve = boundary_f(res_x.label.reshape(t, hp, w).cpu().numpy(),
+                          res_s.label.reshape(t, hp, w).cpu().numpy())
+    if min(fm_stream, fm_solve) < 0.9:
+        raise AssertionError(f"mixed mesh vs the cuda:0 mesh: boundary F "
+                             f"stream {fm_stream:.4f}, chunk solve "
+                             f"{fm_solve:.4f} < 0.9")
+    log("mesh", f"(1,2) mesh of cuda:0 and cpu, {len(frames)} frames "
+        f"{w}x{h}, deterministic algorithms: no device mismatch, every "
+        f"result on cuda:0; the constrained chunk's band 0 equals the "
+        f"band phase on cuda:0 and band 1 the band phase on the CPU (plain "
+        f"K2) exactly; boundary F against the (1,2) mesh of cuda:0 "
+        f"{fm_stream:.4f} (stream, {len(np.unique(rasterize(out_x)))} vs "
+        f"{len(np.unique(rasterize(out_s)))} ids), {fm_solve:.4f} (chunk "
+        f"solve, {int(torch.unique(res_x.label).numel())} vs "
+        f"{int(torch.unique(res_s.label).numel())} labels)")
+
+    x = torch.tensor(np.stack(frames[:2]), device=dev).to(torch.float32) \
+        * (1.0 / 255.0)
+    halves = [x[:, :h // 2], x[:, h // 2:].to(cpu)]
+    for border in ("edge", "reflect"):
+        got = pmesh.halo_exchange_rows(halves, 4, border)
+        want = pmesh.halo_exchange_rows([s.cpu() for s in halves], 4, border)
+        if [g.device for g in got] != [dev, cpu] or not all(
+                torch.equal(g.cpu(), c) for g, c in zip(got, want)):
+            raise AssertionError(f"mixed mesh: halo_exchange_rows ({border})"
+                                 f" differs from the single-device exchange")
+    sm = pmesh.sharded_presmooth(mixed, "bilateral", halo=4)(x[None])[0]
+    on_card(sm, "sharded_presmooth's result")
+    ref = {d: torch.stack([filters.presmooth(img.to(d), "bilateral")
+                           for img in x]) for d in (dev, cpu)}
+    if not (torch.equal(sm[:, :h // 2], ref[dev][:, :h // 2])
+            and torch.equal(sm[:, h // 2:].cpu(), ref[cpu][:, h // 2:])):
+        raise AssertionError("mixed mesh: sharded_presmooth differs from the "
+                             "filter on each shard's device")
+    log("mesh", f"mixed mesh: halo_exchange_rows (edge, reflect) equals the "
+        f"single-device exchange; sharded_presmooth (bilateral, halo 4) "
+        f"equals the filter on each shard's device bit for bit (rows of the "
+        f"CPU shard differ from the card's filter by at most "
+        f"{float((sm - ref[dev]).abs().max()):.3g}); "
+        f"{time.monotonic() - t_check:.1f}s")
 
 
 def main() -> int:
@@ -1459,33 +1990,11 @@ def main() -> int:
         f"({k2_by})")
     del keys, red_k, red_p, seg, own, keys2, tiles
     # K2 at one band of the banded 480x854 path: (13,21,432,480).
-    bh = (BH + 10) // 2
-    lab_b = tf.tile_felzenszwalb(torch.from_numpy(
-        textured(rng, (3, bh, BW), 1.5)).to(dev), **k1_kw)[0]
-    lab_b = torch.cat([lab_b] * 7)[:t_solve]
-    yx = lab_b % (bh * BW)
-    labr_b = ((yx // BW) % tf.TILE_H).to(torch.int32).contiguous()
-    labc_b = (yx % BW % tf.TILE_W).to(torch.int32).contiguous()
-    keys_b = torch.randint(0, 2046 << 20, (13, t_solve, bh, BW),
-                           generator=gen, dtype=torch.int32, device=dev)
-    keys_b[torch.rand(keys_b.shape, generator=gen, device=dev) < 0.3] = \
-        ov.I32MAX
-    if not torch.equal(te.tile_reduce_min(labr_b, labc_b, keys_b),
-                       te.tile_reduce_min_plain(labr_b, labc_b, keys_b)):
-        raise AssertionError("K2 differs from its plain version at the band "
-                             "shape")
-    k2_band_ms = device_ms(lambda: te.tile_reduce_min(labr_b, labc_b, keys_b),
-                           30)
-    k2_band_plain_ms = cuda_ms(
-        lambda: te.tile_reduce_min_plain(labr_b, labc_b, keys_b), 3)
-    k2_band_bound_ms, k2_band_by = bound(
-        2 * keys_b.numel() * 4 + 2 * labr_b.numel() * 4,
-        {"i32": keys_b.numel()})
-    log("k2", f"band shape (13,{t_solve},{bh},{BW}) equal; kernel "
-        f"{k2_band_ms:.4f} ms, plain {k2_band_plain_ms:.4f} ms; bound "
-        f"{k2_band_bound_ms * 1e3:.1f} us ({k2_band_by}), "
-        f"{100 * k2_band_bound_ms / k2_band_ms:.1f}% of it")
-    del keys_b, labr_b, labc_b, lab_b
+    k2_band = k2_band_case(rng, gen, k1_kw, (BH + 10) // 2, BW, t_solve)
+    log("k2", f"band shape {tuple(k2_band['shape'])} equal; kernel "
+        f"{k2_band['ms']:.4f} ms, plain {k2_band['plain_ms']:.4f} ms; bound "
+        f"{k2_band['bound_ms'] * 1e3:.1f} us ({k2_band['bound_by']}), "
+        f"{100 * k2_band['bound_ms'] / k2_band['ms']:.1f}% of it")
     # Colours in (0, 2^-20) of the presmoothed clip: K1's float64 colour
     # sums are exact only outside that interval.
     n_tiny = n_zero = 0
@@ -1897,20 +2406,20 @@ def main() -> int:
         missing = err.name
         log("cli", f"module {missing!r} is missing on this machine: phases "
             "19-23 (seg_tree, kill and resume through the CLI, the offline "
-            "tools) and batch_segment's timings are left out; the fused "
-            "batch still runs from arrays")
+            "tools), batch_segment's timings and 29-30 (bench configs 4 "
+            "and 5) are left out; the fused batch still runs from arrays")
     frames_c = synthetic_clip(N_PATH_FRAMES, seed=2)   # the second clip
     with tempfile.TemporaryDirectory() as tmp:
         if missing is None:
             cli_counts = cli_phases(tmp, frames_p, frames_b, n_solves_p,
                                     n_st)
 
-        fused_counts = fused_phase(tmp, [frames_p, frames_c], n_solves_p,
+        fused_counts = fused_phase(tmp, [frames_p, frames_c],
                                    with_cli=missing is None)
 
         # -- 25. the off-default knobs ---------------------------------------
         t0 = time.monotonic()
-        knob_counts = knobs_phase(tmp, frames_p, frames_b, n_solves_p,
+        knob_counts = knobs_phase(tmp, frames_p, frames_b,
                                   with_cli=missing is None)
         log("knobs", f"phase 25 took {time.monotonic() - t0:.1f}s")
 
@@ -1921,6 +2430,13 @@ def main() -> int:
 
     # -- 28. the device mesh -------------------------------------------------
     mesh_counts = mesh_phase(frames_p)["mesh"]
+
+    # -- 29-30. bench configs 4 and 5 ----------------------------------------
+    config4 = config5 = None
+    if missing is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            config4 = config4_phase(tmp, k1_kw)
+            config5 = config5_phase(tmp, k1_kw, N_SHORT_FRAMES)
 
     # -- 26. the port stands alone -----------------------------------------
     jax_mods = sorted(m for m in sys.modules
@@ -1947,7 +2463,11 @@ def main() -> int:
              launches_knobs={k: v[0] for k, v in knob_counts.items()},
              launches_v1=v1_counts["felz"][0],
              launches_v1_flood=v1_counts["flood"][0],
-             launches_mesh=mesh_counts[0]),
+             launches_mesh=mesh_counts[0],
+             launches_config4=config4 and config4["counts"][0],
+             launches_config5=config5 and config5["counts"][0],
+             config4_frame=config4 and config4["k1"],
+             config5_frame=config5 and config5["k1"]),
         dict(name="tile_reduce_min", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_extract.cu",
              replaces="video_segment_tpu/ops/tile_extract.py:102",
@@ -1960,8 +2480,12 @@ def main() -> int:
              launches_v1=v1_counts["felz"][1],
              launches_v1_flood=v1_counts["flood"][1],
              launches_mesh=mesh_counts[1],
-             band_ms=k2_band_ms, band_plain_ms=k2_band_plain_ms,
-             band_bound_ms=k2_band_bound_ms),
+             band_ms=k2_band["ms"], band_plain_ms=k2_band["plain_ms"],
+             band_bound_ms=k2_band["bound_ms"],
+             launches_config4=config4 and config4["counts"][1],
+             launches_config5=config5 and config5["counts"][1],
+             config4_band=config4 and config4["k2"],
+             config5_band=config5 and config5["k2"]),
         dict(name="tile_presegment", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_preseg.cu",
              replaces="video_segment_tpu/ops/tile_preseg.py:98",
@@ -1970,7 +2494,9 @@ def main() -> int:
              library_ms=None,
              launches_knobs={k: v[2] for k, v in knob_counts.items()},
              launches_v1=v1_counts["felz"][2],
-             launches_v1_flood=v1_counts["flood"][2]),
+             launches_v1_flood=v1_counts["flood"][2],
+             launches_config4=config4 and config4["counts"][2],
+             launches_config5=config5 and config5["counts"][2]),
         dict(name="tile_table_rounds", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_table.cu",
              replaces="video_segment_tpu/ops/tile_table.py:358",
@@ -1980,7 +2506,9 @@ def main() -> int:
              launches_seg_tree_supertile=cli_counts and cli_counts[3],
              launches_knobs={k: v[3] for k, v in knob_counts.items()},
              launches_v1=v1_counts["felz"][3],
-             launches_v1_flood=v1_counts["flood"][3]),
+             launches_v1_flood=v1_counts["flood"][3],
+             launches_config4=config4 and config4["counts"][3],
+             launches_config5=config5 and config5["counts"][3]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -302,21 +302,26 @@ def _stream(ds, frames, flows=None, flush=True):
     return out
 
 
-@pytest.mark.parametrize("h,pad", [(24, 8), (32, 0)], ids=["24rows_pad8",
-                                                           "32rows_nopad"])
+@pytest.mark.parametrize("h,bands,pad", [(24, 2, 8), (32, 2, 0),
+                                         (32, 3, 16), (80, 11, 8)],
+                         ids=["24rows_pad8", "32rows_nopad",
+                              "32rows_3bands_pad16", "80rows_11bands_pad8"])
 @pytest.mark.parametrize("with_flow", [False, True], ids=["noflow", "flow"])
-def test_dense_banded_matches_jax(h, pad, with_flow):
-    """`solver_bands=2` over four chunk solves (free, constrained, flush):
-    frames edge-padded at ingest, K1 on the padded frame, flow and
-    constraint planes padded, per-band seed counts, outputs sliced back to
-    the true height.  Every SegFrame and level-0 hierarchy equals JAX's."""
+def test_dense_banded_matches_jax(h, bands, pad, with_flow):
+    """`solver_bands=2`, 3 (bench config 4's class, 3 bands and 16 pad
+    rows) and 11 (the fused config-5 clip's class: 11 bands, pad rows,
+    here of one tile row each) over four chunk solves (free, constrained,
+    flush): frames
+    edge-padded at ingest, K1 on the padded frame, flow and constraint
+    planes padded, per-band seed counts, outputs sliced back to the true
+    height.  Every SegFrame and level-0 hierarchy equals JAX's."""
     frames = clip(h=h)
     flows = jax_flows(frames) if with_flow else None
-    opts = _options(solver_bands=2)
+    opts = _options(solver_bands=bands)
     jds = jdense.DenseSegmentation(opts, W, h)
     tds = tdense.DenseSegmentation(toptions(opts), W, h, device="cpu")
     assert (tds._bands, tds._pad_rows) == (jds._bands, jds._pad_rows) \
-        == (2, pad)
+        == (bands, pad)
     want = _stream(jds, frames, flows)
     got = _stream(tds, frames, flows)
     assert_frames_equal(got, want)

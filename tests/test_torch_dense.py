@@ -314,6 +314,28 @@ def test_scope_raises(capsys):
         assert ("[dense] chunk_size 20 -> " in t_err) == (want != 20)
 
 
+@pytest.mark.parametrize("w,h,bands,pad", [(720, 1280, 5, 0),
+                                           (1080, 1920, 11, 16)],
+                         ids=["720x1280", "1080x1920"])
+def test_fused_geometry_matches_jax(w, h, bands, pad):
+    """The geometry loop above for the fused batch at bench configs 4 and
+    5's sizes: with 2 clips each clip gets half the voxel budget, so it
+    bands differently from a standalone stage (3 and 6 bands there), and
+    the port's clips take the JAX package's bands and pad rows."""
+    from video_segment_tpu.core import batch as jbatch
+    from video_segment_tpu_torch.core import batch as tbatch
+    tb = tbatch.BatchDenseSegmentation(TDenseSegmentationOptions(), w, h, 2,
+                                       device="cpu")
+    jb = jbatch.BatchDenseSegmentation(DenseSegmentationOptions(), w, h, 2)
+    assert len(tb.clips) == len(jb.clips) == 2
+    for tc, jc in zip(tb.clips, jb.clips):
+        assert (tc._bands, tc._pad_rows) == (jc._bands, jc._pad_rows) \
+            == (bands, pad)
+        assert tc._params.bands == bands
+        assert tc.options.max_solve_voxels == jc.options.max_solve_voxels \
+            == DenseSegmentationOptions().max_solve_voxels // 2
+
+
 def _options(**kw):
     opts = options()
     for k, v in kw.items():

@@ -14,7 +14,8 @@ JAX's mesh stream and the port's `solver_bands=4` stream), the
 agglomeration fed from the mesh's devices (every level exact), the fused
 multi-clip solve, the constrained chunk solver with flow, constraints and
 the gradient trait, and the port's `entry()` and `dryrun_multichip`.
-Tests marked `cuda` run the mesh on one card (every entry `cuda:0`).
+Tests marked `cuda` run the mesh on one card: every entry `cuda:0`, or
+(F8) a mesh of `cuda:0` and the CPU, so that every transfer is real.
 """
 
 import numpy as np
@@ -473,3 +474,24 @@ def test_dryrun_multichip_on_card():
     _card()
     summary = tentry.dryrun_multichip(4)
     assert summary["mesh"] == {"data": 1, "space": 4}
+
+
+@pytest.mark.cuda
+def test_mixed_device_mesh_on_card():
+    """F8: a (1,2) mesh of cuda:0 and the CPU makes every transfer of the
+    mesh code real.  `chip_smoke.mixed_mesh_check` (phase 28's check) at
+    32x256 with chunk 4: the constrained streaming dense stage and
+    `sharded_chunk_solver` on its constrained chunk raise no device
+    mismatch and return every result on cuda:0; each band's outputs equal
+    a single-device `_band_phase` on that band's device (band 1 on the
+    CPU, the plain K2); the glued labels reach boundary F >= 0.9 against a
+    mesh of cuda:0 alone (band 1's float sums ran on the CPU, F3);
+    `halo_exchange_rows` and `sharded_presmooth` equal the single-device
+    versions."""
+    _card()
+    import chip_smoke
+    clip = (_synthetic_clip(np.random.default_rng(0), 10, 32, 256)
+            * 255).astype(np.uint8)
+    chip_smoke.mixed_mesh_check(list(clip), options_from_jax(
+        DenseSegmentationOptions(chunk_size=4,
+                                 enforce_spatial_connectedness=False)))

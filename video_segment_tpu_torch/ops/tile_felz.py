@@ -126,9 +126,13 @@ def tile_felzenszwalb_plain(vol: torch.Tensor,
                             fin_margin: float = 1.0,
                             fin_eager: bool = False,
                             fin_gated: bool = False,
-                            pair_merge: bool = False):
+                            pair_merge: bool = False,
+                            gate_tests: list | None = None):
     """Plain PyTorch version of `tile_felzenszwalb` (same signature and
-    outputs), vectorized over all tiles of the volume."""
+    outputs), vectorized over all tiles of the volume.  Where `gate_tests`
+    is a list, the number of merge tests of each scan (edges within the
+    level's threshold between two different labels, past the fin gate:
+    the float64 mean distances the kernel computes) is appended to it."""
     t, h, w, _ = vol.shape
     dev = vol.device
     rounds = _rounds(schedule, rounds_per_level)
@@ -177,6 +181,7 @@ def tile_felzenszwalb_plain(vol: torch.Tensor,
         best = torch.full_like(lab, _BIG)
         fail = torch.full_like(lab, _OPEN)
         strong = torch.full_like(lab, _OPEN)
+        n_tests = 0
         for k in range(len(DIRS)):
             q = nbr[k]
             bkt = buckets[k]
@@ -185,12 +190,16 @@ def tile_felzenszwalb_plain(vol: torch.Tensor,
             act = valids[k] & (bkt <= theta) & (nb_lab != lab)
             if gated:
                 act = act & (bkt < fin_px) & (bkt < fin_px[:, q])
+            if gate_tests is not None:
+                n_tests += int(act.sum())
             best = torch.minimum(best, torch.where(
                 act & (dd < merge_threshold), (bkt << 10) | nb_lab, _BIG))
             fail = torch.minimum(fail, torch.where(
                 act & (dd >= merge_threshold), bkt, _OPEN))
             strong = torch.minimum(strong, torch.where(
                 act & (dd >= strong_thr), bkt, _OPEN))
+        if gate_tests is not None:
+            gate_tests.append(n_tests)
         return best, fail, strong
 
     lab = own.to(torch.int32).clone()
