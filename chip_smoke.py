@@ -25,48 +25,48 @@ Phases (each prints one line; any failure exits non-zero):
  8. K3 tile_table_rounds vs its plain version on quantized random tables
     and on the first gated level of a real fine-preseg 272x480 chunk, with
     the time, bound and share of each;
- 9. the flood path: segment_frames with preseg_mode="flood" over 41
-    frames (3 chunk solves), launch counts proving K4 and K2 ran;
+ 9. the flood path: segment_frames with preseg_mode="flood" over 31
+    frames (2 chunk solves), launch counts proving K4 and K2 ran;
 10. the supertile path: SegmentStream(DenseSegmentation(solver_params=
-    fine presegs + 3 K3 levels), RegionSegmentation) over 41 frames,
+    fine presegs + 3 K3 levels), RegionSegmentation) over 31 frames,
     launch counts proving K1, K2 and K3 ran;
 11. the flood and supertile dense stages, card vs CPU (boundary F);
 12. TV-L1 flow on the card: ms per 272x480 pair (alone and in a batch of
     6), card vs CPU, and the panning background's recovered motion;
-13. the flow path: segment_frames(use_flow=True, device="cuda") over 41
+13. the flow path: segment_frames(use_flow=True, device="cuda") over 31
     frames, launch counts proving K1 and K2 ran;
 14. the flow dense stage, card vs CPU on the same host flow arrays;
 15. the banded path: segment_frames(use_flow=True, device="cuda") at
     default options over the seeded clip made 480 wide and 854 tall (bench
-    config 3's geometry), 41 frames: 2 row bands and 10 pad rows, output
+    config 3's geometry), 31 frames: 2 row bands and 10 pad rows, output
     frames of the true 854 rows, every pixel labelled, launch counts
     proving K1 ran once per frame and K2 once per band per chunk solve;
 16. the banded dense stage (flow off, 5 frames), card vs CPU (boundary F);
 17. one 480x854 chunk on the card solved in 2 bands and, with
     max_solve_voxels raised, in one band: boundary F between them and the
     seconds of both;
-18. checkpoint kill-and-resume on the card over the 272x480 clip (dense and
-    region stage, flow off), bitwise against the straight run;
+18. checkpoint kill-and-resume on the card over the 31-frame 272x480 clip
+    (dense and region stage, flow off), bitwise against the straight run;
 19. tools/seg_tree on the card, 272x480, flow on (its defaults): the
-    41-frame clip written to an MJPG .avi, then seg_tree.main with
-    --use_pipeline and with --no-use_pipeline: 41 frames in the .pb, every
-    pixel labelled, a hierarchy on each set start, every stage on the card,
-    exact launch counts (K1 41, K2 3) in both modes; fps of both, the flow
-    stage's seconds and ms per pair through push/flush; then both modes
-    again under deterministic algorithms over the first 21 frames: the two
-    .pb files equal;
-20. the same at 480x854 (2 bands), both modes, over 21 frames: K1 21, K2
-    4;
+    first 21 frames of the clip written to an MJPG .avi, then
+    seg_tree.main with --use_pipeline and with --no-use_pipeline: 21
+    frames in the .pb, every pixel labelled, a hierarchy on each set start,
+    every stage on the card, exact launch counts (K1 21, K2 2) in both
+    modes; fps of both, the flow stage's seconds and ms per pair through
+    push/flush; then both modes again under deterministic algorithms: the
+    two .pb files equal;
+20. the same at 480x854 (2 bands), both modes, over 11 frames: K1 11, K2
+    2;
 21. seg_tree --no-flow against segment_frames(use_flow=False) over the
-    same decoded frames (level-0 boundary F), and once with --solver_param
+    same decoded 31 frames (level-0 boundary F), and once with --solver_param
     st_levels=3 --solver_param preseg_pair_merge=1 (K3 launches);
 22. kill and resume through the CLI on the card, flow read from the .flow
     cache, bitwise against the straight cached run;
 23. the offline tools on the .pb just written: converter --mode bitmap_ids
     round-trips frame 0's id image, renderer and viewer --dump write files;
-24. the fused batch: BatchDenseSegmentation over two different 41-frame
+24. the fused batch: BatchDenseSegmentation over two different 21-frame
     clips, flow off, async tails, each clip equal to its standalone run
-    with the synchronous tail (K1 82, K2 6);
+    with the synchronous tail (K1 42, K2 4);
     seconds and fps of batch_segment --fused, sequential and
     --concurrent 2 over the same clips;
 25. the off-default knobs, each a 21-frame 272x480 path with the
@@ -75,16 +75,16 @@ Phases (each prints one line; any failure exits non-zero):
     st_levels=3 and fine presegs (K3 0: the masked rounds, as the JAX
     package's gate), the two-stage solve, the gradient trait at 480x854 (2
     bands: K2 4), windowed appearance (window 10: tables non-empty); the
-    three dense knobs card vs CPU over 8 frames (boundary F); a windowed
+    three dense knobs card vs CPU over 5 frames (boundary F); a windowed
     kill and resume over 30 frames (bitwise); seg_tree --solver_param
     gradient_trait=1 --region_param appearance_window_size=10
     --region_param save_descriptors=1 (one RegionFeatures per region on
     hierarchy frames);
 26. no module of the JAX package (video_segment_tpu) and no jax was
-    imported (checked at the end, after phase 30);
+    imported (checked at the end, after phase 31);
 27. the v1 pixel solver (OversegParams(edge_table=False)): SegmentStream
-    over the 41-frame 272x480 clip, flow off, full hierarchy, with the
-    felz presegs at ingest (K1 41, K2 0, K3 0, K4 0) and in flood mode (K4
+    over the 31-frame 272x480 clip, flow off, full hierarchy, with the
+    felz presegs at ingest (K1 31, K2 0, K3 0, K4 0) and in flood mode (K4
     once a chunk solve, at the force-merge weight; no other kernel), the
     flow path over 21 frames, the felz v1 dense stage card vs CPU over 5
     frames (boundary F), and seg_tree --no-flow --solver_param
@@ -105,18 +105,24 @@ Phases (each prints one line; any failure exits non-zero):
     the plain K2), the glued labels reach boundary F >= 0.9 against a
     mesh of cuda:0 alone, and halo_exchange_rows and sharded_presmooth
     equal the single-device versions;
-29. bench config 4: the 40-frame clip upscaled to 720x1280 as bench.py
-    upscales its clip, through bench.py's threaded stage chain built from
-    the port (flow | dense with async tail | region, queue 10, each
-    SegFrame encoded into a SegmentationWriter), flow off, after a warm
-    pass over the same frames: 3 bands and 16 pad rows, K1 40 and K2 9
-    exactly, 40 frames in order in the .pb; fps, stage seconds, peak
-    memory, regions per chunk set; from the warm pass (the size records
-    stay out of the timed pass), each solve's seeds per band, glued table
-    and constraint ids;
-    the dense stage in 3 forced bands card vs CPU over 5 frames (boundary
-    F); K1 per padded frame and K2 per band at this geometry against
-    their plain versions, with times and bounds;
+29. bench config 4's steady state: the 140-frame clip upscaled to
+    720x1280 as bench.py upscales its clip, through bench.py's threaded
+    stage chain built from the port (flow | dense with async tail |
+    region, queue 10, each SegFrame encoded into a SegmentationWriter, a
+    new container chunk at each chunk set), flow off, after a warm pass
+    over its first 21 frames: 3 bands and 16 pad rows, 8 chunk solves, K1
+    140 and K2 24 exactly, 140 frames in order in the .pb; a full chunk
+    set of chunks 0-5, then the flush set of chunks 4-7 under the first
+    set's overlap constraints, with the seam property at every level;
+    fps, stage seconds, peak memory and where it was reached; per chunk
+    set (host counts taken in the timed pass, no sync added) the
+    over-segmentation regions, rcap, the bytes of one (rcap, 4000) table,
+    whether rcap * 4000 >= 2^31 (where the JAX package stops, R10) and
+    the seconds of agglomerate's table upload (CUDA events); from the warm
+    pass each solve's seeds per band, glued table and constraint ids; the
+    dense stage in 3 forced bands card vs CPU over 5 frames (boundary F);
+    K1 per padded frame and K2 per band at this geometry against their
+    plain versions, with times and bounds;
 30. bench config 5: two 21-frame clips (seeds 0 and 1; the bench runs 40)
     upscaled to 1080x1920; BatchDenseSegmentation over both, each clip
     equal to its standalone run at the halved budget the batch gives it
@@ -124,8 +130,20 @@ Phases (each prints one line; any failure exits non-zero):
     --fused --no-flow over both clips as MJPG .avi files and the renderer
     at render level 0.1 on each .pb: launch counts exact, each .pb read
     back with a hierarchy, each video non-empty; fps, the renderer's
-    seconds and peak memory; the same table sizes from a second, untimed
-    batch_segment pass; K1 and K2 at this geometry as in 29.
+    seconds and peak memory; K1 and K2 at this geometry as in 29.
+31. the region stage's streaming steady state at 272x480: segment_frames
+    with its defaults, flow off, over 140 frames (8 chunk solves): a full
+    chunk set of chunks 0-5, then the flush set of chunks 4-7 under the
+    first set's constraints; frames in order, once each; K1 140, K2 8, K3
+    0, K4 0; the dense buffer within chunk_size + 1 frames; the seam
+    property (overlap regions that shared a level-l id in one set share
+    one at level l in the next, at every level) and level-0 ids shared
+    across the seam; fps, stage seconds, peak memory, per set regions and
+    rcap; then the same API at 136x240 in 4-frame chunks over 40 frames
+    (14 solves, 3 seams) on the card and on the CPU: the seam property on
+    both devices, level-0 boundary F >= 0.9, per-level region counts side
+    by side (float order differs on the card, so not compared for
+    equality).
 Phases 19-23, 25's and 27's seg_tree runs, 29 and 30 decode or resize
 with cv2 and write with protobuf; where either is missing one line names
 it and the phases left out.
@@ -153,11 +171,13 @@ import torch
 H, W = 272, 480
 BH, BW = 854, 480    # the banded path: bench config 3's geometry
 N_FRAMES = 60
-N_PATH_FRAMES = 41   # the flood and supertile paths: 3 chunk solves
+N_PATH_FRAMES = 31   # the flood, supertile, flow and banded paths: 2 solves
 N_SHORT_FRAMES = 21  # seg_tree at 480x854, the deterministic pair: 2 solves
 C4_W, C4_H = 720, 1280    # bench config 4 (bench.py's scale_to)
 C5_W, C5_H = 1080, 1920   # bench config 5
-N_BENCH_FRAMES = 40       # bench.py's frames at configs 4 and 5
+N_LONG_FRAMES = 140       # 8 chunk solves: a full chunk set, then a seam
+N_SEAM_FRAMES = 40        # phase 31 card vs CPU: 14 solves of 4-frame chunks
+SEAM_H, SEAM_W = 136, 240
 KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table")
 
 # Peak rates of one H100 SXM for the bounds: HBM bytes/s and non-tensor
@@ -765,6 +785,183 @@ def size_summary(rec) -> str:
            for i, r in enumerate(rec["sets"])])
 
 
+@contextlib.contextmanager
+def set_records(cls=None):
+    """Every chunk set that a RegionSegmentation of class `cls` (the
+    port's by default; any class with the same `_process_set` and
+    `_inherit_ids`) processes inside the block, in order, from host data
+    alone: no device sync is added.  Per set: its chunk count, whether it
+    was the flush set, whether the previous set's overlap constrained it,
+    its over-segmentation gids (sorted) and each one's id at every
+    hierarchy level, the overlap assignment (`_prev_assign`) it leaves for
+    the next set, and `rows`, the (rows, bins) table height of
+    `agglomerate`.  On a card also the allocator's peak before and after
+    the set, and CUDA events around `agglomerate`'s table upload (read
+    them with `set_summary` once the device is idle)."""
+    from video_segment_tpu_torch.core import agglomeration, region
+    if cls is None:
+        cls = region.RegionSegmentation
+    rec = []
+    saved = cls._process_set, cls._inherit_ids, agglomeration._upload
+    uploads = []
+
+    def inherit(self, levels_raw, level_ids, all_gids, sizes, r):
+        out = saved[1](self, levels_raw, level_ids, all_gids, sizes, r)
+        rec.append(dict(
+            gids=np.asarray(all_gids).copy(),
+            ids=[np.asarray(out[lv])[np.asarray(lab)[:r]]
+                 for lv, lab in enumerate(levels_raw)],
+            constrained=bool(getattr(self, "_prev_assign", None))))
+        return out
+
+    def process(self, chunks, emit_all):
+        dev = getattr(self, "device", None)
+        on_card = isinstance(dev, torch.device) and dev.type == "cuda"
+        before = torch.cuda.max_memory_allocated(dev) if on_card else None
+        del uploads[:]
+        res = saved[0](self, chunks, emit_all)
+        r = rec[-1]
+        r.update(chunks=len(chunks), flush=emit_all,
+                 rows=region._next_pow2(len(r["gids"]) + 1),
+                 bins=self.num_color_bins,
+                 prev_assign=[(np.asarray(pg).copy(), np.asarray(pid).copy())
+                              for pg, pid in self._prev_assign],
+                 upload=uploads[0] if uploads else None)
+        if on_card:
+            after = torch.cuda.max_memory_allocated(dev)
+            r["peak_mib"] = after / 2**20 if after > before else None
+        return res
+
+    def upload(dev, *tables):
+        if dev.type != "cuda":
+            return saved[2](dev, *tables)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t0 = time.monotonic()
+        out = saved[2](dev, *tables)
+        host_s = time.monotonic() - t0
+        ev[1].record()
+        uploads.append(dict(events=ev, host_s=host_s, nbytes=sum(
+            t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+            else np.asarray(t).nbytes for t in tables)))
+        return out
+
+    cls._process_set, cls._inherit_ids = process, inherit
+    agglomeration._upload = upload
+    try:
+        yield rec
+    finally:
+        cls._process_set, cls._inherit_ids = saved[:2]
+        agglomeration._upload = saved[2]
+
+
+def seam_check(sets) -> list:
+    """The seam property of consecutive chunk sets (what the JAX package's
+    `test_moving_scene_composition_stable_across_seams` asserts, held here
+    over every region of the next set): overlap regions that shared a
+    level-l id in set k share one id at level l in set k+1, at every level
+    that set k assigned and set k+1 has.  `sets` as `set_records` gives
+    them.  Raises on a split group; returns per seam the groups checked
+    per level and the share of set k+1's level-0 ids that set k also
+    had."""
+    seams = []
+    for k, (a, b) in enumerate(zip(sets, sets[1:])):
+        if a["flush"] or not a["prev_assign"] or not b["constrained"]:
+            raise AssertionError(f"set {k + 1} follows a set that left no "
+                                 f"overlap assignment")
+        groups = []
+        for lv, (pg, pid) in enumerate(a["prev_assign"][:len(b["ids"])]):
+            pos = np.minimum(np.searchsorted(b["gids"], pg),
+                             len(b["gids"]) - 1)
+            if not np.array_equal(b["gids"][pos], pg):
+                raise AssertionError(f"seam {k}: overlap regions missing "
+                                     f"from set {k + 1}")
+            pairs = np.unique(np.stack([pid, b["ids"][lv][pos]], 1), axis=0)
+            n_ids = np.unique(pairs[:, 0], return_counts=True)[1]
+            n_groups = len(n_ids)
+            if (n_ids > 1).any():
+                raise AssertionError(
+                    f"seam {k}, level {lv}: {int((n_ids > 1).sum())} of "
+                    f"{n_groups} overlap groups split across the sets")
+            groups.append(n_groups)
+        ids0_a, ids0_b = np.unique(a["ids"][0]), np.unique(b["ids"][0])
+        seams.append(dict(levels=len(groups), groups=groups,
+                          share0=len(np.intersect1d(ids0_a, ids0_b))
+                          / max(len(ids0_b), 1)))
+    return seams
+
+
+def set_summary(sets) -> str:
+    """One clause per chunk set of `set_records`: chunks, regions, table
+    rows and bytes, the R10 flag, the upload and where the peak rose."""
+    out = []
+    for i, r in enumerate(sets):
+        nbytes = r["rows"] * r["bins"] * 4
+        msg = (f"set {i} ({r['chunks']} chunks, "
+               f"{'flush' if r['flush'] else 'mid-stream'}"
+               f"{', constrained' if r['constrained'] else ''}): "
+               f"{len(r['gids'])} over-segmentation regions, rcap "
+               f"{r['rows']}, a ({r['rows']}, {r['bins']}) float32 table "
+               f"{nbytes} B = {nbytes / 2**30:.2f} GiB, rcap * bins >= 2^31 "
+               f"(R10: the JAX package stops) {r['rows'] * r['bins'] >= 2**31}"
+               f", {len(r['ids'])} levels")
+        up = r.get("upload")
+        if up is not None:
+            ms = up["events"][0].elapsed_time(up["events"][1])
+            msg += (f"; table upload {up['nbytes'] / 2**30:.2f} GiB in "
+                    f"{ms / 1e3:.3f} s on the card's clock "
+                    f"({up['host_s']:.3f} s host, "
+                    f"{up['nbytes'] / ms / 1e6:.2f} GB/s)")
+        if r.get("peak_mib") is not None:
+            msg += f"; the device's peak rose to {r['peak_mib']:.1f} MiB"
+        out.append(msg)
+    return "; ".join(out)
+
+
+def seam_summary(seams) -> str:
+    return "; ".join(
+        f"seam {k}: {s['levels']} levels held, overlap groups per level "
+        f"{s['groups']}, level-0 id overlap {100 * s['share0']:.1f}%"
+        for k, s in enumerate(seams))
+
+
+def seam_card_vs_cpu(frames, options=None) -> dict:
+    """Phase 31, second part: `segment_frames` (flow off) over `frames`
+    with dense `options` (`chunk_size=4` by default) on the card and on the
+    CPU, each under `set_records`: the seam property on both devices
+    (`seam_check`), level-0 boundary F of the emitted frames, card against
+    CPU, and the per-level region counts of each set side by side (float
+    order differs on the card, F1 and F3: the hierarchies are not
+    compared for equality).  Raises where a check fails."""
+    from video_segment_tpu_torch import api
+    h, w = frames[0].shape[:2]
+    options = options or api.DenseSegmentationOptions(chunk_size=4)
+    res = {}
+    for name in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        with set_records() as sets:
+            stream = api.segment_frames(iter(frames), w, h, use_flow=False,
+                                        dense_options=options, device=name)
+            out = list(stream)
+        if [sf.frame_index for sf in out] != list(range(len(frames))):
+            raise AssertionError(f"{name}: frames missing or out of order")
+        res[name] = dict(
+            img=rasterize(out), sets=sets, seams=seam_check(sets),
+            solves=len(stream.solve_diag), seconds=time.monotonic() - t0,
+            regions=[[len(np.unique(x)) for x in r["ids"]] for r in sets])
+    if res["cuda"]["solves"] != res["cpu"]["solves"] or \
+            len(res["cuda"]["sets"]) != len(res["cpu"]["sets"]):
+        raise AssertionError("card and CPU ran different chunk sets")
+    if len(res["cuda"]["seams"]) < 2:
+        raise AssertionError(f"{len(res['cuda']['seams'])} seams, want 2 or "
+                             f"more")
+    res["f"] = boundary_f(res["cuda"]["img"], res["cpu"]["img"])
+    if res["f"] < 0.9:
+        raise AssertionError(f"seams card vs CPU: level-0 boundary F "
+                             f"{res['f']:.4f} < 0.9")
+    return res
+
+
 def k1_case(vol: torch.Tensor, k1_kw: dict) -> dict:
     """K1 against its plain version on `vol` (bit for bit), and its time
     (launches back to back) and bound there."""
@@ -903,14 +1100,17 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
     # -- 19. seg_tree, 272x480, flow on ------------------------------------
     want = (n, n_solves, 0, 0)
     master = staged("master", frames_p)
+    n_short = N_SHORT_FRAMES
+    want_short = (n_short, expected_chunk_solves(n_short, 20), 0, 0)
+    short = staged("short", frames_p[:n_short])
     runs = {}
     for mode in ("--use_pipeline", "--no-use_pipeline"):
-        path = staged("time" + mode, src=master)
-        runs[mode] = seg(path, mode, want=want)
+        path = staged("time" + mode, src=short)
+        runs[mode] = seg(path, mode, want=want_short)
         imgs, hier_at = read_pb(path + ".pb")
-        if imgs.shape != (n, H, W):
+        if imgs.shape != (n_short, H, W):
             raise AssertionError(f"seg_tree {mode}: .pb holds {imgs.shape}")
-        if cli_fps(runs[mode])[0] != n:
+        if cli_fps(runs[mode])[0] != n_short:
             raise AssertionError(f"seg_tree {mode}: {runs[mode]['text']}")
         for kind in ("dense", "region", "flow"):
             if len(runs[mode]["made"][kind]) != 1:
@@ -920,9 +1120,6 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
             f"{seg_tree_summary(runs[mode])}; hierarchies at frames "
             f"{hier_at}; {len(np.unique(imgs[0]))} level-0 regions in "
             f"frame 0")
-    n_short = N_SHORT_FRAMES
-    want_short = (n_short, expected_chunk_solves(n_short, 20), 0, 0)
-    short = staged("short", frames_p[:n_short])
     det = {}
     with deterministic():
         for mode in ("--use_pipeline", "--no-use_pipeline"):
@@ -938,13 +1135,15 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
         f"counts exact in both ({want_short}, {n_short} frames)")
     cli_counts = list(runs["--use_pipeline"]["counts"])
 
-    # -- 20. seg_tree, 480x854, both modes, 21 frames ----------------------
-    banded = staged("banded", frames_b[:n_short])
+    # -- 20. seg_tree, 480x854, both modes, 11 frames ----------------------
+    n_band = 11
+    banded = staged("banded", frames_b[:n_band])
     for mode in ("--use_pipeline", "--no-use_pipeline"):
         path = staged("banded" + mode, src=banded)
-        run = seg(path, mode, want=(n_short, 2 * want_short[1], 0, 0))
+        run = seg(path, mode, want=(
+            n_band, 2 * expected_chunk_solves(n_band, 20), 0, 0))
         imgs, hier_at = read_pb(path + ".pb")
-        if imgs.shape != (n_short, BH, BW):
+        if imgs.shape != (n_band, BH, BW):
             raise AssertionError(f"seg_tree banded: .pb holds {imgs.shape}")
         del imgs
         ds = run["made"]["dense"][0]
@@ -952,7 +1151,7 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
             raise AssertionError(f"seg_tree banded: bands {ds._bands}, pad "
                                  f"rows {ds._pad_rows}")
         log("cli", f"seg_tree {mode} {BW}x{BH} flow on, 2 bands, "
-            f"{n_short} frames: "
+            f"{n_band} frames: "
             f"{seg_tree_summary(run)}; hierarchies at frames {hier_at}")
 
     # -- 21. seg_tree --no-flow against the API ------------------------------
@@ -1230,8 +1429,8 @@ def knobs_phase(tmp, frames_p, frames_b, with_cli) -> dict:
             ("gradient", api.DenseSegmentationOptions(), gradient),
             ("two-stage", two_stage, None)):
         t0 = time.monotonic()
-        fm, n_reg, _ = dense_card_vs_cpu(frames_p[:8], options, params)
-        log("knobs", f"{name}: 8 frames, one flush chunk, card vs CPU: "
+        fm, n_reg, _ = dense_card_vs_cpu(frames_p[:5], options, params)
+        log("knobs", f"{name}: 5 frames, one flush chunk, card vs CPU: "
             f"boundary F {fm:.4f} (regions {n_reg}; "
             f"{time.monotonic() - t0:.1f}s)")
         if fm < 0.9:
@@ -1313,7 +1512,7 @@ def knobs_phase(tmp, frames_p, frames_b, with_cli) -> dict:
 
 def v1_phase(tmp, frames_p, with_cli) -> dict:
     """Phase 27: the v1 pixel solver (OversegParams(edge_table=False)) on
-    the card: the felz path (41 frames, flow off, K1 once a frame and no
+    the card: the felz path (31 frames, flow off, K1 once a frame and no
     other kernel), the flood path (K4 once a chunk solve, no other
     kernel), the flow path over 21 frames, the felz v1 dense stage card vs
     CPU over 5 frames (boundary F), and (with cv2 and protobuf) seg_tree
@@ -1545,19 +1744,48 @@ def mesh_phase(frames_p) -> dict:
     return {"mesh": run_m["launches"], "timed": timed}
 
 
+def long_stream_checks(name: str, sets, n_solves: int) -> list:
+    """The chunk sets of a 140-frame stream (20-frame chunks, the default
+    sets of 6 with 2 kept as overlap): a full mid-stream set of chunks 0-5,
+    then the flush set of chunks 4-7 under the first set's constraints;
+    the seam property at every level and level-0 ids shared across the
+    seam.  Returns `seam_check`'s seams."""
+    got = [(r["chunks"], r["flush"], r["constrained"]) for r in sets]
+    if n_solves != 8 or got != [(6, False, False), (4, True, True)]:
+        raise AssertionError(f"{name}: {n_solves} chunk solves, sets "
+                             f"(chunks, flush, constrained) {got}")
+    seams = seam_check(sets)
+    if any(s["share0"] <= 0 for s in seams):
+        raise AssertionError(f"{name}: a set shares no level-0 id with the "
+                             f"set before it")
+    return seams
+
+
+def peak_site(sets, peak: int) -> str:
+    """Where the run's peak allocation was reached: in the chunk set whose
+    processing raised the peak to it (the allocator's counter read before
+    and after each set), or elsewhere."""
+    for i, r in enumerate(sets):
+        if r.get("peak_mib") is not None and \
+                abs(r["peak_mib"] - peak / 2**20) < 1e-6:
+            return f"chunk set {i}'s processing (agglomerate)"
+    return "outside the chunk sets' processing (the dense stage)"
+
+
 def config4_phase(tmp, k1_kw: dict) -> dict:
-    """Phase 29: bench config 4 on the card (see the module docstring).
-    Returns the timed pass's launch counts and the kernels' cases at this
-    geometry."""
+    """Phase 29: bench config 4's steady state on the card (see the module
+    docstring).  Returns the timed pass's launch counts and the kernels'
+    cases at this geometry."""
     from video_segment_tpu_torch import api
     from video_segment_tpu_torch.core import dense
     dev = torch.device("cuda", 0)
     t_phase = time.monotonic()
-    frames = upscale(synthetic_clip(N_BENCH_FRAMES, seed=0), C4_W, C4_H)
+    frames = upscale(synthetic_clip(N_LONG_FRAMES, seed=0), C4_W, C4_H)
     n = len(frames)
     with size_records() as sizes:
         t0 = time.monotonic()
-        bench_chain(frames, C4_W, C4_H, os.path.join(tmp, "config4_warm.pb"))
+        bench_chain(frames[:N_SHORT_FRAMES], C4_W, C4_H,
+                    os.path.join(tmp, "config4_warm.pb"))
         warm_s = time.monotonic() - t0
 
     pb = os.path.join(tmp, "config4.pb")
@@ -1565,7 +1793,8 @@ def config4_phase(tmp, k1_kw: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
-    order, sets, ds, rs = bench_chain(frames, C4_W, C4_H, pb)
+    with set_records() as sets:
+        order, hier, ds, rs = bench_chain(frames, C4_W, C4_H, pb)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = launch_counts()
@@ -1579,22 +1808,29 @@ def config4_phase(tmp, k1_kw: dict) -> dict:
                              f"{(n, 3 * n_solves, 0, 0)}")
     if order != list(range(n)):
         raise AssertionError(f"config 4: frames emitted as {order}")
+    seams = long_stream_checks("config 4", sets, n_solves)
     imgs, hier_at = read_pb(pb)
-    if imgs.shape != (n, C4_H, C4_W):
-        raise AssertionError(f"config 4: the .pb holds {imgs.shape}")
+    if imgs.shape != (n, C4_H, C4_W) or len(hier_at) != len(sets):
+        raise AssertionError(f"config 4: the .pb holds {imgs.shape}, "
+                             f"hierarchies at {hier_at}")
+    del imgs
     stages = {k: round(v, 3) for k, v in
               {**ds.stage_seconds, **rs.stage_seconds}.items()}
     log("config4", f"{n} frames {C4_W}x{C4_H} (the {W}x{H} clip upscaled), "
         f"flow off, bench.py's stage chain: {wall:.2f}s = {n / wall:.3f} fps "
-        f"(the warm pass over the same frames, with the size records, "
-        f"{warm_s:.1f}s); stage "
-        f"seconds (threads, not additive) {stages}; peak device memory "
-        f"{peak / 2**20:.1f} MiB; {ds._bands} bands of "
-        f"{(C4_H + ds._pad_rows) // ds._bands} rows, {ds._pad_rows} pad rows; "
-        f"hierarchy regions per level of each chunk set {sets}; .pb read "
-        f"back: {n} frames, hierarchies at {hier_at}; launches K1/K2/K4/K3 "
-        f"{counts}")
+        f"(the warm pass over the first {N_SHORT_FRAMES} frames, with the "
+        f"size records, {warm_s:.1f}s); stage seconds (threads, not "
+        f"additive) {stages}; peak device memory {peak / 2**20:.1f} MiB, "
+        f"reached in {peak_site(sets, peak)}; {ds._bands} bands of "
+        f"{(C4_H + ds._pad_rows) // ds._bands} rows, {ds._pad_rows} pad "
+        f"rows; {n_solves} chunk solves; hierarchy regions per level of each "
+        f"chunk set {hier}; .pb read back: {n} frames in order, hierarchies "
+        f"at {hier_at}; launches K1/K2/K4/K3 {counts}")
+    log("config4", "chunk sets (host counts taken in the timed pass, no "
+        "sync added): " + set_summary(sets))
+    log("config4", "seam property held: " + seam_summary(seams))
     log("config4", "the warm pass's sizes: " + size_summary(sizes))
+    del sets
 
     forced = dense.DenseSegmentation(api.DenseSegmentationOptions(
         solver_bands=3), C4_W, C4_H, device="cpu")
@@ -1618,6 +1854,65 @@ def config4_phase(tmp, k1_kw: dict) -> dict:
     log("config4", kernel_summary(k1, k2))
     log("config4", f"phase 29 took {time.monotonic() - t_phase:.1f}s")
     return dict(counts=counts, k1=k1, k2=k2)
+
+
+def steady_phase() -> dict:
+    """Phase 31: the region stage's streaming steady state at 272x480 on
+    the card (see the module docstring).  Returns the launch counts."""
+    from video_segment_tpu_torch import api
+    dev = torch.device("cuda", 0)
+    t_phase = time.monotonic()
+    frames = synthetic_clip(N_LONG_FRAMES, seed=3)
+    reset_launches(*kernel_wrappers())
+    with set_records() as sets:
+        stream = api.segment_frames(iter(frames), W, H, use_flow=False,
+                                    device="cuda")
+        ds, rs = stream.dense, stream.region
+        bufs = [0, 0, 0]   # dense frames, region features, region chunks
+        feed = ds.process_frame
+
+        def watched(*args):
+            res = feed(*args)
+            bufs[:] = [max(b, x) for b, x in zip(bufs, (
+                len(ds._buffer), len(rs._features), len(rs._chunks)))]
+            return res
+
+        ds.process_frame = watched
+        out, wall, peak = run_stream(stream, dev)
+    counts = launch_counts()
+    hier = check_stream(out, stream, N_LONG_FRAMES)
+    n_solves = len(stream.solve_diag)
+    want = (N_LONG_FRAMES, n_solves, 0, 0)
+    if counts != want:
+        raise AssertionError(f"steady state: launches K1/K2/K4/K3 {counts}, "
+                             f"want {want}")
+    seams = long_stream_checks("steady state", sets, n_solves)
+    if bufs[0] > ds.options.chunk_size + 1:
+        raise AssertionError(f"steady state: the dense stage buffered "
+                             f"{bufs[0]} frames")
+    log("steady", path_summary(out, stream, wall, peak, hier)
+        + f"; peak reached in {peak_site(sets, peak)}; largest buffers: "
+        f"dense {bufs[0]} frames (chunk_size + 1 = "
+        f"{ds.options.chunk_size + 1}), region features {bufs[1]} frames, "
+        f"region chunks {bufs[2]}; launches K1/K2/K4/K3 {counts}")
+    log("steady", "chunk sets: " + set_summary(sets))
+    log("steady", "seam property held: " + seam_summary(seams))
+    del out, sets
+
+    res = seam_card_vs_cpu(synthetic_clip(N_SEAM_FRAMES, seed=3, h=SEAM_H,
+                                          w=SEAM_W))
+    log("steady", f"card vs CPU across seams: {N_SEAM_FRAMES} frames "
+        f"{SEAM_W}x{SEAM_H}, chunk_size 4, flow off: "
+        f"{res['cuda']['solves']} chunk solves, "
+        f"{len(res['cuda']['sets'])} chunk sets on each device; level-0 "
+        f"boundary F {res['f']:.4f}; regions per level of each set, card "
+        f"{res['cuda']['regions']}, CPU {res['cpu']['regions']}; seam "
+        f"property held on the card ({seam_summary(res['cuda']['seams'])}) "
+        f"and on the CPU ({seam_summary(res['cpu']['seams'])}); "
+        f"{res['cuda']['seconds']:.1f}s card, {res['cpu']['seconds']:.1f}s "
+        f"CPU")
+    log("steady", f"phase 31 took {time.monotonic() - t_phase:.1f}s")
+    return dict(counts=counts)
 
 
 def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
@@ -1684,12 +1979,6 @@ def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
         f"K1/K2/K4/K3 {run['counts']}; each .pb read back with "
         f"{n_frames} frames and a hierarchy, level-0 regions per clip "
         f"{regions}")
-    with size_records() as sizes:
-        run_cli(batch_segment.main, [*vids, "--fused", "--no-flow",
-                                     "--output_dir", out_dir + "_sizes"],
-                want)
-    log("config5", "an untimed second batch_segment pass's sizes: "
-        + size_summary(sizes))
 
     k1 = k1_case(batches[0].clips[0].preprocess(clips[0][0])[None]
                  .contiguous(), k1_kw)
@@ -2408,13 +2697,14 @@ def main() -> int:
             "19-23 (seg_tree, kill and resume through the CLI, the offline "
             "tools), batch_segment's timings and 29-30 (bench configs 4 "
             "and 5) are left out; the fused batch still runs from arrays")
-    frames_c = synthetic_clip(N_PATH_FRAMES, seed=2)   # the second clip
+    frames_c = synthetic_clip(N_SHORT_FRAMES, seed=2)   # the second clip
     with tempfile.TemporaryDirectory() as tmp:
         if missing is None:
             cli_counts = cli_phases(tmp, frames_p, frames_b, n_solves_p,
                                     n_st)
 
-        fused_counts = fused_phase(tmp, [frames_p, frames_c],
+        fused_counts = fused_phase(tmp, [frames_p[:N_SHORT_FRAMES],
+                                         frames_c[:N_SHORT_FRAMES]],
                                    with_cli=missing is None)
 
         # -- 25. the off-default knobs ---------------------------------------
@@ -2437,6 +2727,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             config4 = config4_phase(tmp, k1_kw)
             config5 = config5_phase(tmp, k1_kw, N_SHORT_FRAMES)
+
+    # -- 31. the streaming steady state at 272x480 ---------------------------
+    steady_counts = steady_phase()["counts"]
 
     # -- 26. the port stands alone -----------------------------------------
     jax_mods = sorted(m for m in sys.modules
@@ -2464,7 +2757,8 @@ def main() -> int:
              launches_v1=v1_counts["felz"][0],
              launches_v1_flood=v1_counts["flood"][0],
              launches_mesh=mesh_counts[0],
-             launches_config4=config4 and config4["counts"][0],
+             launches_long=steady_counts[0],
+             launches_config4_long=config4 and config4["counts"][0],
              launches_config5=config5 and config5["counts"][0],
              config4_frame=config4 and config4["k1"],
              config5_frame=config5 and config5["k1"]),
@@ -2482,7 +2776,8 @@ def main() -> int:
              launches_mesh=mesh_counts[1],
              band_ms=k2_band["ms"], band_plain_ms=k2_band["plain_ms"],
              band_bound_ms=k2_band["bound_ms"],
-             launches_config4=config4 and config4["counts"][1],
+             launches_long=steady_counts[1],
+             launches_config4_long=config4 and config4["counts"][1],
              launches_config5=config5 and config5["counts"][1],
              config4_band=config4 and config4["k2"],
              config5_band=config5 and config5["k2"]),
@@ -2495,7 +2790,8 @@ def main() -> int:
              launches_knobs={k: v[2] for k, v in knob_counts.items()},
              launches_v1=v1_counts["felz"][2],
              launches_v1_flood=v1_counts["flood"][2],
-             launches_config4=config4 and config4["counts"][2],
+             launches_long=steady_counts[2],
+             launches_config4_long=config4 and config4["counts"][2],
              launches_config5=config5 and config5["counts"][2]),
         dict(name="tile_table_rounds", route="cuda",
              source="video_segment_tpu_torch/csrc/tile_table.cu",
@@ -2507,7 +2803,8 @@ def main() -> int:
              launches_knobs={k: v[3] for k, v in knob_counts.items()},
              launches_v1=v1_counts["felz"][3],
              launches_v1_flood=v1_counts["flood"][3],
-             launches_config4=config4 and config4["counts"][3],
+             launches_long=steady_counts[3],
+             launches_config4_long=config4 and config4["counts"][3],
              launches_config5=config5 and config5["counts"][3]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

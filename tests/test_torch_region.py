@@ -177,6 +177,41 @@ def test_agglomerate_own_distances_match_jax(seed, case):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+@pytest.mark.parametrize("bins", [4000, 1025, 33, 32, 16, 7])
+def test_native_edge_color_distance_matches_plain_and_jax(bins):
+    """The CPU's native chi-square (`native.chi_square_edges`, which
+    `edge_color_distance` takes on the CPU) equals the torch ops bit for
+    bit on sparse rows, empty rows, rows of tiny and of huge weights, and
+    normalized bins at the 1e-12 gate; and the JAX package's, except at
+    exactly 32 bins, where XLA orders the sum otherwise than both port
+    paths (1 ulp; no configuration has 32 colour bins)."""
+    from video_segment_tpu.ops import histograms as jhops
+    from video_segment_tpu_torch import native
+    from video_segment_tpu_torch.ops import histograms as thops
+    assert native.available()
+    rng = np.random.default_rng(bins)
+    r = 64
+    x = rng.random((r, bins)).astype(np.float32)
+    x[rng.random((r, bins)) < 0.9] = 0
+    x[:4] = 0
+    x[4:8] *= np.float32(1e-30)
+    x[8:12] *= np.float32(1e6)
+    x[12:16] = 0
+    x[12:16, 0] = 1
+    x[12:16, 1:4] = np.asarray([5e-13, 1e-12, 2e-12], np.float32)
+    edges = rng.integers(0, r, (700, 2)).astype(np.int32)
+    edges[:64] = np.stack([np.arange(64) % 16, (np.arange(64) + 1) % 16], 1)
+    hist, ed = torch.from_numpy(x), torch.from_numpy(edges)
+    got = thops.edge_color_distance(hist, ed)
+    plain = thops.edge_color_distance_plain(hist, ed)
+    want = np.asarray(jhops.edge_color_distance(jnp.asarray(x),
+                                                jnp.asarray(edges)))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  plain.numpy().view(np.int32))
+    if bins != 32:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_xla_log2_matches_jax():
     """`xla_log2` equals `jax.jit(jnp.log2)` on the CPU bit for bit over
     the size ratios' range (1e-20 up to thousands), where torch.log2 (the

@@ -317,6 +317,34 @@ def _run_all_levels(state: AggloState, edges, evalid, constr_stack,
     return labels_out.cpu().numpy(), actives
 
 
+def _upload(dev, hist, flow_hist, flow_cnt, sizes, win_hist,
+            win_cnt) -> AggloState:
+    """The chunk set's statistics tables on `dev`, copied dense.
+
+    The JAX package uploads each table of 2^20 elements or more as COO
+    (int32 keys and float32 values) and scatters it on the device
+    (`_scatter_table`, `_to_device_sparse`): its host reached the TPU over
+    a remote link of 30-60 MB/s, where the dense (rows, 4000) histograms,
+    about 95% zeros, were the largest cost of agglomeration.  Its int32
+    keys also stop it at 2^31 elements, so at any set of 524,288 regions
+    or more (ROADMAP.md Queue 3, R10).  The card here sits on the host's
+    own PCIe link, so the port copies every table dense: no key limit, no
+    scatter, no second table-sized buffer on the card.  Bench config 4's
+    full set (729,214 regions, a (1048576, 4000) table of 15.6 GiB) took
+    3.764 s to upload from pageable memory, 4.46 GB/s, against 108.2 s in
+    the region stage over the 140-frame stream (`chip_smoke.py` phase 29,
+    NVIDIA H100 80GB HBM3, 700.00 W); finding the table's nonzeros for
+    COO is itself a host pass over all 16.8 GB."""
+    def put(x):
+        if isinstance(x, torch.Tensor):   # e.g. gathered from a mesh
+            return x.to(dev, torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    return AggloState(_arange(hist.shape[0], torch.empty(0, device=dev)),
+                      put(hist), put(flow_hist), put(flow_cnt), put(sizes),
+                      put(win_hist), put(win_cnt))
+
+
 def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
                 *, min_region_num: int = 10, max_region_num: int = 10000,
                 cutoff_fraction: float = 0.8, penalizer: float = 0.25,
@@ -329,21 +357,15 @@ def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
     (R,) root arrays (numpy).  Arguments as in the JAX `agglomerate`
     (flow_hist (T,R,FB), flow_cnt (T,R); T=0 without flow; windowed
     appearance tables win_hist (NW,R,B) and win_cnt (NW,R), whose distance
-    replaces the single histogram's when NW > 0)."""
+    replaces the single histogram's when NW > 0).  The tables are copied
+    to `device` dense, where the JAX package scatters COO (`_upload` says
+    why)."""
     dev = devmod.resolve(device)
     r = hist.shape[0]
     if win_hist is None:
         win_hist = np.zeros((0, r, hist.shape[1]), np.float32)
         win_cnt = np.zeros((0, r), np.float32)
-
-    def put(x):
-        if isinstance(x, torch.Tensor):   # e.g. gathered from a mesh
-            return x.to(dev, torch.float32)
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
-
-    state = AggloState(_arange(r, torch.empty(0, device=dev)), put(hist),
-                       put(flow_hist), put(flow_cnt), put(sizes),
-                       put(win_hist), put(win_cnt))
+    state = _upload(dev, hist, flow_hist, flow_cnt, sizes, win_hist, win_cnt)
     edges = np.asarray(edges, np.int32)
     if edges.shape[0] == 0:
         edges = np.zeros((1, 2), np.int32)  # inert self-edge

@@ -86,6 +86,11 @@ def _load():
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_float),
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_float)]
+    lib.chi_square_edges.restype = None
+    lib.chi_square_edges.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_float)]
     _lib = lib
     return lib
 
@@ -193,6 +198,30 @@ def weighted_bincount(keys: np.ndarray, weights: np.ndarray, m: int,
         weights.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         len(keys), m, n_threads,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out
+
+
+def chi_square_edges(hist: np.ndarray, edges: np.ndarray,
+                     n_threads: int = 0) -> np.ndarray | None:
+    """(E,) float32 chi-square distances of the L1-normalized rows of
+    `hist` (R, B) float32 for the row pairs `edges` (E, 2), bit for bit
+    as `ops/histograms.edge_color_distance` computes them on the CPU
+    (XLA's summation order); None if the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    hist = np.ascontiguousarray(hist, np.float32)
+    edges = np.ascontiguousarray(edges, np.int32)
+    out = np.empty(len(edges), np.float32)
+    if n_threads <= 0:
+        n_threads = min(8, os.cpu_count() or 1)
+    if len(edges):
+        lib.chi_square_edges(
+            hist.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            hist.shape[1],
+            edges.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(edges), n_threads,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out
 
 

@@ -7,6 +7,8 @@
 //    enforcement (reference tube analysis,
 //    dense_segmentation_graph.h:666-904).
 //  - rle_encode_rows: run-length extraction of a label image.
+//  - chi_square_edges: the region stage's colour chi-square per edge on
+//    the CPU, in the float order of the JAX package's compiled sums.
 //
 // Built as a plain shared library, bound via ctypes (no pybind11 in this
 // image).
@@ -35,9 +37,68 @@ inline void unite(std::vector<int32_t>& parent, int32_t a, int32_t b) {
   if (a != b) parent[b < a ? a : b] = (b < a ? b : a);
 }
 
+// Float32 sum of x[0, n) in the order of XLA's CPU reductions
+// (ops/histograms.xla_order_sum): windows of 32 summed left to right from
+// zero, the window sums (zero-padded, half the padding in front, rounded
+// down) reduced the same way until 32 or fewer are left.  `buf` holds
+// ceil(n / 32) floats; each level is written over the one before it.
+float xla_order_sum(const float* x, int32_t n, float* buf) {
+  const float* cur = x;
+  int32_t len = n;
+  while (len > 32) {
+    const int32_t nw = (len + 31) / 32;
+    const int32_t front = (nw * 32 - len) / 2;
+    for (int32_t w = 0; w < nw; ++w) {
+      float acc = 0.0f;
+      for (int32_t i = 0; i < 32; ++i) {
+        const int32_t j = w * 32 + i - front;
+        acc = acc + ((j >= 0 && j < len) ? cur[j] : 0.0f);
+      }
+      buf[w] = acc;
+    }
+    cur = buf;
+    len = nw;
+  }
+  float acc = 0.0f;
+  for (int32_t i = 0; i < len; ++i) acc = acc + cur[i];
+  return acc;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Chi-square distance of the L1-normalized rows of `hist` (rows, bins)
+// float32 for each (a, b) row pair of `edges` (n_edges, 2) int32, exactly
+// as ops/histograms.edge_color_distance computes it on the CPU: each row
+// divided by max(its XLA-order sum, 1e-20), then 0.5 times the XLA-order
+// sum of (a - b)^2 / (a + b) over the bins where |a + b| > 1e-12.
+void chi_square_edges(const float* hist, int32_t bins, const int32_t* edges,
+                      int64_t n_edges, int32_t n_threads, float* out) {
+  n_threads = std::max<int32_t>(
+      1, static_cast<int32_t>(std::min<int64_t>(n_threads, n_edges)));
+  auto worker = [&](int32_t k) {
+    std::vector<float> terms(bins), buf(bins / 32 + 2);
+    const int64_t lo = n_edges * k / n_threads;
+    const int64_t hi = n_edges * (k + 1) / n_threads;
+    for (int64_t e = lo; e < hi; ++e) {
+      const float* a = hist + static_cast<int64_t>(edges[2 * e]) * bins;
+      const float* b = hist + static_cast<int64_t>(edges[2 * e + 1]) * bins;
+      const float sa = std::max(xla_order_sum(a, bins, buf.data()), 1e-20f);
+      const float sb = std::max(xla_order_sum(b, bins, buf.data()), 1e-20f);
+      for (int32_t i = 0; i < bins; ++i) {
+        const float x = a[i] / sa, y = b[i] / sb;
+        const float add = x + y, sub = x - y;
+        const float sq = sub * sub;
+        terms[i] = std::fabs(add) > 1e-12f ? sq / add : 0.0f;
+      }
+      out[e] = 0.5f * xla_order_sum(terms.data(), bins, buf.data());
+    }
+  };
+  std::vector<std::thread> threads;
+  for (int32_t k = 0; k < n_threads; ++k) threads.emplace_back(worker, k);
+  for (auto& th : threads) th.join();
+}
 
 // labels: (h, w) int32 region labels.  comp out: (h, w) int32 component ids,
 // compacted to [0, n_components), components never span different labels.

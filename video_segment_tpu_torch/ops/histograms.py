@@ -123,7 +123,21 @@ def normalize_l1(h: torch.Tensor) -> torch.Tensor:
 def edge_color_distance(hist: torch.Tensor, edges: torch.Tensor,
                         batch: int = 8192) -> torch.Tensor:
     """chi^2 over normalized color hists for (E,2) region index pairs, in
-    edge batches to bound the gathered (batch, bins) windows."""
+    edge batches to bound the gathered (batch, bins) windows.  On the CPU
+    the native helper computes the same floats in one pass
+    (`native.chi_square_edges`; these torch ops where it is unavailable)."""
+    if hist.device.type == "cpu":
+        from video_segment_tpu_torch import native
+        d = native.chi_square_edges(hist.detach().numpy(), edges.numpy(),
+                                    torch.get_num_threads())
+        if d is not None:
+            return torch.from_numpy(d)
+    return edge_color_distance_plain(hist, edges, batch)
+
+
+def edge_color_distance_plain(hist: torch.Tensor, edges: torch.Tensor,
+                              batch: int = 8192) -> torch.Tensor:
+    """`edge_color_distance` in torch ops on any device."""
     out = []
     for s in range(0, edges.shape[0], batch):
         chunk = edges[s:s + batch]
