@@ -1,0 +1,10 @@
+"""Milliseconds a frame in the port's `region` stage: the API stream's
+`stage_seconds["region"]` summed over the window's untraced clips, over
+their frames."""
+
+
+def read(rec):
+    secs = rec.get("stage_seconds", {}).get("region")
+    if secs is None or not rec.get("stage_frames"):
+        return None
+    return 1e3 * secs / rec["stage_frames"]
