@@ -118,7 +118,8 @@ Phases (each prints one line; any failure exits non-zero):
     set (host counts taken in the timed pass, no sync added) the
     over-segmentation regions, rcap, the bytes of one (rcap, 4000) table,
     whether rcap * 4000 >= 2^31 (where the JAX package stops, R10) and
-    the seconds of agglomerate's table upload (CUDA events); from the warm
+    the seconds of agglomerate's table upload (host seconds of the
+    region.upload span, a blocking pageable copy); from the warm
     pass each solve's seeds per band, glued table and constraint ids; the
     dense stage in 3 forced bands card vs CPU over 5 frames (boundary F);
     K1 per padded frame and K2 per band at this geometry against their
@@ -795,15 +796,16 @@ def set_records(cls=None):
     its over-segmentation gids (sorted) and each one's id at every
     hierarchy level, the overlap assignment (`_prev_assign`) it leaves for
     the next set, and `rows`, the (rows, bins) table height of
-    `agglomerate`.  On a card also the allocator's peak before and after
-    the set, and CUDA events around `agglomerate`'s table upload (read
-    them with `set_summary` once the device is idle)."""
-    from video_segment_tpu_torch.core import agglomeration, region
+    `agglomerate`.  For a stage with a `trace` (the port's), `rows` comes
+    from its `region.regions` counter and `upload` holds the set's table
+    bytes (`region.table_bytes`) and the host seconds of its
+    `region.upload` span: a blocking copy from pageable memory.  On a card
+    also the allocator's peak before and after the set."""
+    from video_segment_tpu_torch.core import region
     if cls is None:
         cls = region.RegionSegmentation
     rec = []
-    saved = cls._process_set, cls._inherit_ids, agglomeration._upload
-    uploads = []
+    saved = cls._process_set, cls._inherit_ids
 
     def inherit(self, levels_raw, level_ids, all_gids, sizes, r):
         out = saved[1](self, levels_raw, level_ids, all_gids, sizes, r)
@@ -818,41 +820,37 @@ def set_records(cls=None):
         dev = getattr(self, "device", None)
         on_card = isinstance(dev, torch.device) and dev.type == "cuda"
         before = torch.cuda.max_memory_allocated(dev) if on_card else None
-        del uploads[:]
+        trace = getattr(self, "trace", None)
+        if trace is not None:
+            secs0, cnt0 = trace.seconds, trace.counters
         res = saved[0](self, chunks, emit_all)
         r = rec[-1]
+        regions, upload = len(r["gids"]), None
+        if trace is not None:
+            secs, cnt = trace.seconds, trace.counters
+
+            def grew(d, d0, k):
+                return d.get(k, 0) - d0.get(k, 0)
+
+            regions = grew(cnt, cnt0, "region.regions")
+            upload = dict(nbytes=grew(cnt, cnt0, "region.table_bytes"),
+                          host_s=grew(secs, secs0, "region.upload"))
         r.update(chunks=len(chunks), flush=emit_all,
-                 rows=region._next_pow2(len(r["gids"]) + 1),
+                 rows=region._next_pow2(regions + 1),
                  bins=self.num_color_bins,
                  prev_assign=[(np.asarray(pg).copy(), np.asarray(pid).copy())
                               for pg, pid in self._prev_assign],
-                 upload=uploads[0] if uploads else None)
+                 upload=upload)
         if on_card:
             after = torch.cuda.max_memory_allocated(dev)
             r["peak_mib"] = after / 2**20 if after > before else None
         return res
 
-    def upload(dev, *tables):
-        if dev.type != "cuda":
-            return saved[2](dev, *tables)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        t0 = time.monotonic()
-        out = saved[2](dev, *tables)
-        host_s = time.monotonic() - t0
-        ev[1].record()
-        uploads.append(dict(events=ev, host_s=host_s, nbytes=sum(
-            t.numel() * t.element_size() if isinstance(t, torch.Tensor)
-            else np.asarray(t).nbytes for t in tables)))
-        return out
-
     cls._process_set, cls._inherit_ids = process, inherit
-    agglomeration._upload = upload
     try:
         yield rec
     finally:
-        cls._process_set, cls._inherit_ids = saved[:2]
-        agglomeration._upload = saved[2]
+        cls._process_set, cls._inherit_ids = saved
 
 
 def seam_check(sets) -> list:
@@ -893,7 +891,8 @@ def seam_check(sets) -> list:
 
 def set_summary(sets) -> str:
     """One clause per chunk set of `set_records`: chunks, regions, table
-    rows and bytes, the R10 flag, the upload and where the peak rose."""
+    rows and bytes, the R10 flag, the upload (host seconds of the
+    `region.upload` span) and where the peak rose."""
     out = []
     for i, r in enumerate(sets):
         nbytes = r["rows"] * r["bins"] * 4
@@ -906,12 +905,11 @@ def set_summary(sets) -> str:
                f"(R10: the JAX package stops) {r['rows'] * r['bins'] >= 2**31}"
                f", {len(r['ids'])} levels")
         up = r.get("upload")
-        if up is not None:
-            ms = up["events"][0].elapsed_time(up["events"][1])
+        if up is not None and up["host_s"] > 0:
             msg += (f"; table upload {up['nbytes'] / 2**30:.2f} GiB in "
-                    f"{ms / 1e3:.3f} s on the card's clock "
-                    f"({up['host_s']:.3f} s host, "
-                    f"{up['nbytes'] / ms / 1e6:.2f} GB/s)")
+                    f"{up['host_s']:.3f} s, host seconds of a blocking "
+                    f"pageable copy (the region.upload span; no CUDA "
+                    f"events), {up['nbytes'] / up['host_s'] / 1e9:.2f} GB/s")
         if r.get("peak_mib") is not None:
             msg += f"; the device's peak rose to {r['peak_mib']:.1f} MiB"
         out.append(msg)
@@ -2156,12 +2154,6 @@ def main() -> int:
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(_build.load, KERNELS))
-    for name in KERNELS:
-        regs = [ln.strip() for ln in _build.build_info[name]["log"]
-                .splitlines() if "registers" in ln or "spill" in ln
-                or "smem" in ln]
-        log("build", f"{name}: {_build.build_info[name]['seconds']:.2f}s "
-            f"{' | '.join(regs)}")
     tiles = -(-H // tf.TILE_H) * -(-W // tf.TILE_W)
     log("build", resource_line("tile_felz", tiles))        # one frame
     log("build", resource_line("tile_extract", 21 * tiles))  # one chunk

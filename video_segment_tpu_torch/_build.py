@@ -15,7 +15,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -32,8 +31,6 @@ _lock = threading.Lock()  # guards _name_locks
 # One lock per kernel, so that builds of different kernels overlap.
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": build seconds (0.0 when cached), "log": ptxas output}
-build_info: dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -61,19 +58,15 @@ def load(name: str) -> ctypes.CDLL:
             digest = hashlib.sha256(
                 f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
-        t0 = time.monotonic()
-        log = ""
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {src}:\n{' '.join(cmd)}"
-                                   f"\n{log}")
+                                   f"\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, so)
-        build_info[name] = {"seconds": time.monotonic() - t0, "log": log}
         lib = ctypes.CDLL(so)
         _libs[name] = lib
         return lib

@@ -15,7 +15,6 @@ stage's connectedness and the region stage's flow descriptors.
 
 from __future__ import annotations
 
-import time
 from typing import Iterable
 
 import numpy as np
@@ -25,6 +24,7 @@ from video_segment_tpu_torch import device as devmod
 from video_segment_tpu_torch.core import dense as dense_mod
 from video_segment_tpu_torch.core.options import (DenseSegmentationOptions,
                                                   RegionSegmentationOptions)
+from video_segment_tpu_torch.runtime.trace import Trace
 
 
 def segment_frames(frames: Iterable[np.ndarray], frame_width: int,
@@ -38,16 +38,17 @@ def segment_frames(frames: Iterable[np.ndarray], frame_width: int,
     """Stream BGR uint8 frames through the full segmentation pipeline on
     `device`, yielding SegFrame results (RLE regions + hierarchy on set
     starts).  The stage objects are built (and the arguments checked)
-    before the first frame is consumed."""
+    before the first frame is consumed; they share the stream's `Trace`."""
+    trace = Trace()
     dense = dense_mod.DenseSegmentation(
         dense_options or DenseSegmentationOptions(), frame_width,
-        frame_height, device=device)
+        frame_height, device=device, trace=trace)
     region = None
     if not over_segment_only:
         from video_segment_tpu_torch.core import region as region_mod
         region = region_mod.RegionSegmentation(
             region_options or RegionSegmentationOptions(use_flow=use_flow),
-            frame_width, frame_height, device=device)
+            frame_width, frame_height, device=device, trace=trace)
     flow = None
     if use_flow:
         from video_segment_tpu_torch.core import flow as flow_mod
@@ -57,16 +58,21 @@ def segment_frames(frames: Iterable[np.ndarray], frame_width: int,
 
 class SegmentStream:
     """Iterator over the SegFrames of one `segment_frames` call, with the
-    pipeline's counters: `stage_seconds` (ingest+preseg, chunk solve, host
-    tail, region, and flow when a flow engine runs) and `solve_diag` (per
-    chunk solve, per schedule level: [table cap (the v1 pixel solver: its
-    segment-domain size), merge rounds, live regions])."""
+    pipeline's counters: `stage_seconds` (every span of the stream's
+    `trace`: ingest+preseg, chunk solve, host tail, region, flow when a
+    flow engine runs, and their dotted parts, `runtime/trace.py`),
+    `counters` (the trace's counters) and `solve_diag` (per chunk solve,
+    per schedule level: [table cap (the v1 pixel solver: its
+    segment-domain size), merge rounds, live regions]).  The trace is the
+    dense stage's, which the region stage shares when `segment_frames`
+    built both; a region stage built with its own trace adds its spans
+    and counters to these views."""
 
     def __init__(self, frames, dense, region, flow=None):
         self.dense = dense
         self.region = region
         self.flow = flow
-        self._flow_seconds = 0.0
+        self.trace = dense.trace
         self._gen = self._run(frames)
 
     def __iter__(self):
@@ -75,13 +81,27 @@ class SegmentStream:
     def __next__(self):
         return next(self._gen)
 
+    def _traces(self) -> list:
+        if self.region is None or self.region.trace is self.trace:
+            return [self.trace]
+        return [self.trace, self.region.trace]
+
     @property
     def stage_seconds(self) -> dict:
-        out = dict(self.dense.stage_seconds)
+        out = {}
+        for trace in self._traces():
+            out.update(trace.seconds)
         if self.region is not None:
-            out.update(self.region.stage_seconds)
+            out.setdefault("region", 0.0)
         if self.flow is not None:
-            out["flow"] = self._flow_seconds
+            out.setdefault("flow", 0.0)
+        return out
+
+    @property
+    def counters(self) -> dict:
+        out = {}
+        for trace in self._traces():
+            out.update(trace.counters)
         return out
 
     @property
@@ -93,10 +113,9 @@ class SegmentStream:
         for idx, frame in enumerate(frames):
             fl = None
             if flow is not None:
-                t0 = time.monotonic()
-                fl = flow.compute(frame, idx)
-                devmod.synchronize(flow.device)
-                self._flow_seconds += time.monotonic() - t0
+                with self.trace.span("flow"):
+                    fl = flow.compute(frame, idx)
+                    devmod.synchronize(flow.device)
             if region is not None:
                 region.add_frame(idx, frame, fl)
             out = dense.process_frame(False, frame, fl)

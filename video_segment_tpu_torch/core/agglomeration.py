@@ -24,6 +24,7 @@ from video_segment_tpu_torch import device as devmod
 from video_segment_tpu_torch.core.oversegmentation import (I32MAX, seg_max,
                                                           seg_min, seg_sum)
 from video_segment_tpu_torch.ops import cc, histograms as hops
+from video_segment_tpu_torch.runtime.trace import Trace
 
 _DQ = 1 << 20  # distance quantization for integer keys
 _I64MAX = 2 ** 63 - 1
@@ -352,50 +353,61 @@ def agglomerate(hist, flow_hist, flow_cnt, sizes, edges, num_regions: int,
                 constraints=None, win_hist=None, win_cnt=None,
                 reeval_cap: int = 1024, phase_floor: int = 256,
                 edge_degree: int = 16,
-                device: str | torch.device = "cuda"):
+                device: str | torch.device = "cuda",
+                trace: Trace | None = None):
     """Run the full level loop on `device`; returns a list of per-level
     (R,) root arrays (numpy).  Arguments as in the JAX `agglomerate`
     (flow_hist (T,R,FB), flow_cnt (T,R); T=0 without flow; windowed
     appearance tables win_hist (NW,R,B) and win_cnt (NW,R), whose distance
     replaces the single histogram's when NW > 0).  The tables are copied
     to `device` dense, where the JAX package scatters COO (`_upload` says
-    why)."""
+    why).  Given a `trace` (`runtime/trace.py`), the copies to the device
+    are its `region.upload` span, the level loop through its labels on the
+    host its `region.levels` span, and the statistics tables' bytes are
+    added to its `region.table_bytes` counter."""
     dev = devmod.resolve(device)
+    trace = trace if trace is not None else Trace()
     r = hist.shape[0]
     if win_hist is None:
         win_hist = np.zeros((0, r, hist.shape[1]), np.float32)
         win_cnt = np.zeros((0, r), np.float32)
-    state = _upload(dev, hist, flow_hist, flow_cnt, sizes, win_hist, win_cnt)
-    edges = np.asarray(edges, np.int32)
-    if edges.shape[0] == 0:
-        edges = np.zeros((1, 2), np.int32)  # inert self-edge
-    edges = torch.as_tensor(edges, device=dev)
-    ecap = int(edges.shape[0])
-    evalid = torch.ones(ecap, dtype=torch.bool, device=dev)
-
     max_levels = 40
-    constr_stack = np.full((max_levels, r), -1, np.int32)
-    if constraints is not None:
-        for lv in range(min(len(constraints), max_levels)):
-            constr_stack[lv] = constraints[lv]
-    constr_stack = torch.as_tensor(constr_stack, device=dev)
+    with trace.span("region.upload"):
+        state = _upload(dev, hist, flow_hist, flow_cnt, sizes, win_hist,
+                        win_cnt)
+        edges = np.asarray(edges, np.int32)
+        if edges.shape[0] == 0:
+            edges = np.zeros((1, 2), np.int32)  # inert self-edge
+        edges = torch.as_tensor(edges, device=dev)
+        ecap = int(edges.shape[0])
+        evalid = torch.ones(ecap, dtype=torch.bool, device=dev)
 
-    phases = _phase_specs(r, ecap, reeval_cap=reeval_cap,
-                          floor=min(phase_floor, r),
-                          edge_degree=edge_degree)
-    labels_out, actives = _run_all_levels(
-        state, edges, evalid, constr_stack, max_region_num, min_region_num,
-        float(np.float32(cutoff_fraction)), bool(use_flow),
-        float(np.float32(penalizer)), max_subrounds, max_levels, phases)
+        constr_stack = np.full((max_levels, r), -1, np.int32)
+        if constraints is not None:
+            for lv in range(min(len(constraints), max_levels)):
+                constr_stack[lv] = constraints[lv]
+        constr_stack = torch.as_tensor(constr_stack, device=dev)
+    trace.count("region.table_bytes",
+                sum(t.numel() * t.element_size() for t in state[1:]))
 
-    levels = []
-    active = num_regions
-    for lv in range(max_levels):
-        if active <= min_region_num:
-            break
-        new_active = int(actives[lv])
-        if new_active == 0 or new_active >= active:
-            break
-        active = new_active
-        levels.append(labels_out[lv].copy())
+    with trace.span("region.levels"):
+        phases = _phase_specs(r, ecap, reeval_cap=reeval_cap,
+                              floor=min(phase_floor, r),
+                              edge_degree=edge_degree)
+        labels_out, actives = _run_all_levels(
+            state, edges, evalid, constr_stack, max_region_num,
+            min_region_num, float(np.float32(cutoff_fraction)),
+            bool(use_flow), float(np.float32(penalizer)), max_subrounds,
+            max_levels, phases)
+
+        levels = []
+        active = num_regions
+        for lv in range(max_levels):
+            if active <= min_region_num:
+                break
+            new_active = int(actives[lv])
+            if new_active == 0 or new_active >= active:
+                break
+            active = new_active
+            levels.append(labels_out[lv].copy())
     return levels

@@ -39,6 +39,7 @@ import torch
 from video_segment_tpu_torch.core import oversegmentation as ov
 from video_segment_tpu_torch.core.dense import DenseSegmentation, SegFrame
 from video_segment_tpu_torch.core.options import DenseSegmentationOptions
+from video_segment_tpu_torch.runtime.trace import Trace
 
 
 class BatchDenseSegmentation:
@@ -94,11 +95,19 @@ class BatchDenseSegmentation:
         ready = [i for i, ds in enumerate(self.clips)
                  if ds._chunk_ready(flush)]
         if ready:
-            preps = [self.clips[i]._prepare_chunk(flush) for i in ready]
+            # A clip's chunk_solve runs from its preparation to its outputs
+            # on the host, the other clips' solves included.
+            starts, preps = [], []
+            for i in ready:
+                starts.append(Trace.now())
+                preps.append(self.clips[i]._prepare_chunk(flush))
             results = self._solve_batch([self.clips[i] for i in ready],
                                         preps)
-            for i, prep, res in zip(ready, preps, results):
-                outs[i] = self.clips[i]._post_solve(prep, res, flush)
+            for i, prep, res, start in zip(ready, preps, results, starts):
+                ds = self.clips[i]
+                with ds.trace.span("chunk_solve", start=start) as solve:
+                    host = ds._solve_to_host(prep, res)
+                outs[i] = ds._post_solve(prep, host, flush, solve.end)
         if flush:
             for i, ds in enumerate(self.clips):
                 if i not in ready:

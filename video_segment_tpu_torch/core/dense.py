@@ -33,8 +33,6 @@ package's host modules (`core/connectedness.py`, `ops/rle.py`).
 from __future__ import annotations
 
 import dataclasses
-import time
-from collections import defaultdict
 
 import numpy as np
 import torch
@@ -43,6 +41,7 @@ from video_segment_tpu_torch import device as devmod
 from video_segment_tpu_torch.core import oversegmentation as ov
 from video_segment_tpu_torch.core.options import DenseSegmentationOptions
 from video_segment_tpu_torch.ops import filters, rle, tile_felz, tile_preseg
+from video_segment_tpu_torch.runtime.trace import Trace
 
 
 @dataclasses.dataclass
@@ -165,9 +164,11 @@ class DenseSegmentation:
             results += ds.process_frame(False, frame)
         results += ds.process_frame(True)
 
-    `stage_seconds` accumulates wall-clock seconds per stage
-    ("ingest_preseg", "chunk_solve", "host_tail"); stage boundaries
-    synchronize the device so each stage owns its device time.
+    `stage_seconds` holds wall-clock seconds per stage ("ingest_preseg",
+    "chunk_solve", "host_tail"); stage boundaries synchronize the device
+    so each stage owns its device time.  They are spans of `trace`
+    (`runtime/trace.py`; a new one unless given), which also times the
+    host tail's parts ("host_tail.compact", ".connect", ".ids", ".rle").
 
     `device` defaults to "cuda" (raising without CUDA).  With
     `mesh=parallel.mesh.Mesh`, the chunk solves run their row bands over
@@ -178,7 +179,8 @@ class DenseSegmentation:
     def __init__(self, options: DenseSegmentationOptions, frame_width: int,
                  frame_height: int,
                  solver_params: ov.OversegParams | None = None, *,
-                 device: str | torch.device | None = None, mesh=None):
+                 device: str | torch.device | None = None, mesh=None,
+                 trace: Trace | None = None):
         if options.chunk_size < 3:
             raise ValueError("chunk_size needs to be at least 3 frames")
         options = dataclasses.replace(options)
@@ -280,7 +282,7 @@ class DenseSegmentation:
         self._max_region_id = 0
         self._num_output_frames = 0
         self._overlap_gids: list[np.ndarray] = []
-        self.stage_seconds: dict[str, float] = defaultdict(float)
+        self.trace = trace if trace is not None else Trace()
         self.solve_diag: list[np.ndarray] = []  # per chunk solve
         self._tail_exec = None
         self._pending = None
@@ -289,6 +291,12 @@ class DenseSegmentation:
             from concurrent.futures import ThreadPoolExecutor
             self._tail_exec = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="dense-tail")
+
+    @property
+    def stage_seconds(self) -> dict:
+        secs = self.trace.seconds
+        return {k: secs[k] for k in ("ingest_preseg", "chunk_solve",
+                                     "host_tail") if k in secs}
 
     # -- streaming state ---------------------------------------------------
 
@@ -353,12 +361,6 @@ class DenseSegmentation:
         ingest."""
         return self._preseg_mode == "felz" and self._presegment
 
-    def _stage_done(self, name: str, t0: float) -> float:
-        devmod.synchronize(self.device)
-        t1 = time.monotonic()
-        self.stage_seconds[name] += t1 - t0
-        return t1
-
     # -- streaming --------------------------------------------------------
 
     def process_frame(self, flush: bool,
@@ -375,18 +377,18 @@ class DenseSegmentation:
         return []
 
     def _ingest(self, frame_bgr_u8: np.ndarray, flow) -> None:
-        t0 = time.monotonic()
-        img = self.preprocess(frame_bgr_u8)
-        self._buffer.append(img)
-        if self._felz_at_ingest():
-            self._preseg_buffer.append(self._preseg_frame(img))
-        if flow is None or hasattr(flow, "numpy_f16"):
-            self._flow_buffer.append(flow)
-        else:
-            self._flow_buffer.append(np.asarray(flow, np.float32))
-        if flow is not None:
-            self._has_flow = True
-        self._stage_done("ingest_preseg", t0)
+        with self.trace.span("ingest_preseg"):
+            img = self.preprocess(frame_bgr_u8)
+            self._buffer.append(img)
+            if self._felz_at_ingest():
+                self._preseg_buffer.append(self._preseg_frame(img))
+            if flow is None or hasattr(flow, "numpy_f16"):
+                self._flow_buffer.append(flow)
+            else:
+                self._flow_buffer.append(np.asarray(flow, np.float32))
+            if flow is not None:
+                self._has_flow = True
+            devmod.synchronize(self.device)
 
     def _chunk_ready(self, flush: bool) -> bool:
         return bool(self._buffer) and (
@@ -409,12 +411,12 @@ class DenseSegmentation:
     # -- chunk solve ------------------------------------------------------
 
     def _segment_chunk(self, flush: bool) -> list[SegFrame]:
-        prep = self._prepare_chunk(flush)
-        res = self._dispatch_solve(prep)
-        return self._post_solve(prep, res, flush)
+        with self.trace.span("chunk_solve") as solve:
+            prep = self._prepare_chunk(flush)
+            host = self._solve_to_host(prep, self._dispatch_solve(prep))
+        return self._post_solve(prep, host, flush, solve.end)
 
     def _prepare_chunk(self, flush: bool) -> dict:
-        t_pre0 = time.monotonic()
         t = len(self._buffer)
         h, w = self.frame_height, self.frame_width
         dev = self.device
@@ -566,7 +568,7 @@ class DenseSegmentation:
                     constraints=constraints, init_label=init_label,
                     frozen=frozen, tile_fin=tile_fin, tile_stats=tile_stats,
                     params=params, head_planes=head_planes,
-                    cid_to_gid=cid_to_gid, t_pre0=t_pre0)
+                    cid_to_gid=cid_to_gid)
 
     def _dispatch_solve(self, prep: dict) -> ov.OversegResult:
         if self._mesh is not None:
@@ -599,10 +601,10 @@ class DenseSegmentation:
             prep["head_planes"], use_cells)
         return solver(*_materialize_solve_inputs(prep, self.frame_width))
 
-    def _post_solve(self, prep: dict, res: ov.OversegResult,
-                    flush: bool) -> list[SegFrame]:
+    def _solve_to_host(self, prep: dict, res: ov.OversegResult) -> dict:
+        """The solve's outputs that the host tail reads, on the host, then
+        a device sync: the end of the chunk solve."""
         t = prep["t"]
-        cid_to_gid = prep["cid_to_gid"]
         n4 = self.options.enforce_n4_connectivity
         slotvol = lut = labels = None
         if res.label16 is not None and int(res.nsink) == 0:
@@ -617,8 +619,15 @@ class DenseSegmentation:
         res = ov.OversegResult(label=None, constr=res.constr.cpu().numpy(),
                                size=res.size.cpu().numpy(),
                                orig=res.orig.cpu().numpy())
-        t_solve1 = self._stage_done("chunk_solve", prep["t_pre0"])
+        devmod.synchronize(self.device)
+        return dict(labels=labels, slotvol=slotvol, lut=lut, res=res)
 
+    def _post_solve(self, prep: dict, host: dict, flush: bool,
+                    solve_end: float) -> list[SegFrame]:
+        """Rotate the streaming state and run (or queue) the host tail of
+        a solved chunk; `host` from `_solve_to_host`, `solve_end` the host
+        clock when the solve ended, where the tail's seconds start."""
+        t = prep["t"]
         last_output = (t - 1) if flush else (t - self.overlap_frames)
         flow_np = None
         if (self.options.enforce_spatial_connectedness and self._has_flow
@@ -629,12 +638,11 @@ class DenseSegmentation:
             flow_np = np.stack([
                 f.numpy_f16() if hasattr(f, "numpy_f16") else np.asarray(f)
                 for f in self._flow_buffer[1:t]])
-        ctx = dict(labels=labels, slotvol=slotvol, lut=lut, res=res,
-                   cid_to_gid=cid_to_gid, flush=flush, t=t,
+        ctx = dict(host, cid_to_gid=prep["cid_to_gid"], flush=flush, t=t,
                    last_output=last_output, flow_np=flow_np,
                    had_constraints=bool(self._overlap_gids),
                    chunk_start=self._chunk_start, chunk_id=self._chunk_id,
-                   t0=t_solve1)
+                   solve_end=solve_end)
 
         # Rotate streaming state now — the tail never touches it.
         if flush:
@@ -666,7 +674,16 @@ class DenseSegmentation:
     def _chunk_tail(self, ctx, planes_ready) -> list[SegFrame]:
         """Host tail: compaction, spatial connectedness, global ids,
         overlap constraint planes (released via `planes_ready`), level-0
-        hierarchy and per-frame RLE."""
+        hierarchy and per-frame RLE.  Its seconds count from the end of
+        the chunk's solve."""
+        with self.trace.span("host_tail", start=ctx["solve_end"]):
+            try:
+                return self._host_tail(ctx, planes_ready)
+            finally:
+                if planes_ready is not None:
+                    planes_ready.set()
+
+    def _host_tail(self, ctx, planes_ready) -> list[SegFrame]:
         res = ctx["res"]
         cid_to_gid = ctx["cid_to_gid"]
         flush = ctx["flush"]
@@ -674,8 +691,9 @@ class DenseSegmentation:
         last_output = ctx["last_output"]
         chunk_start = ctx["chunk_start"]
         h, w = self.frame_height, self.frame_width
+        span = self.trace.span
 
-        try:
+        with span("host_tail.compact"):
             if ctx["slotvol"] is not None:
                 slotvol = ctx["slotvol"]
                 cnt = np.bincount(slotvol.ravel(), minlength=len(ctx["lut"]))
@@ -689,19 +707,20 @@ class DenseSegmentation:
                 num_regions = len(roots)
                 constr_of_region, _ = ov.region_attrs(res, roots)
 
-            if self.options.enforce_spatial_connectedness:
-                from video_segment_tpu_torch.core import connectedness
+        if self.options.enforce_spatial_connectedness:
+            from video_segment_tpu_torch.core import connectedness
+            with span("host_tail.connect"):
                 compact, n2, _origin = \
                     connectedness.enforce_spatial_connectedness(
                         compact, num_regions, flow=ctx["flow_np"])
-                if n2 > num_regions:
-                    # Split-off tubes are new, unconstrained regions.
-                    constr_of_region = np.concatenate(
-                        [constr_of_region,
-                         np.full(n2 - num_regions, -1,
-                                 constr_of_region.dtype)])
-                    num_regions = n2
+            if n2 > num_regions:
+                # Split-off tubes are new, unconstrained regions.
+                constr_of_region = np.concatenate(
+                    [constr_of_region,
+                     np.full(n2 - num_regions, -1, constr_of_region.dtype)])
+                num_regions = n2
 
+        with span("host_tail.ids"):
             # Global id assignment (AssignUniqueRegionIds).
             gids = np.full(num_regions, -1, np.int64)
             constrained = constr_of_region >= 0
@@ -717,44 +736,44 @@ class DenseSegmentation:
             else:
                 self._overlap_gids = [gids[compact[f]]
                                       for f in range(last_output, t)]
-        finally:
             if planes_ready is not None:
                 planes_ready.set()
 
-        window_lo = 1 if ctx["had_constraints"] else 0  # excl. frozen plane
-        out_chunk_size = last_output - chunk_start + 1
-        hierarchy_frame_idx = self._num_output_frames
-        global_frame0 = self._num_output_frames - chunk_start
+            window_lo = 1 if ctx["had_constraints"] else 0  # excl. frozen
+            out_chunk_size = last_output - chunk_start + 1
+            hierarchy_frame_idx = self._num_output_frames
+            global_frame0 = self._num_output_frames - chunk_start
 
-        win = compact[window_lo:last_output + 1]
-        start_f, end_f, _ = rle.region_presence(win, num_regions)
-        sizes = rle.region_sizes(win, num_regions)
-        in_window = sizes > 0
-        pairs = rle.neighbor_pairs(win)
-        keep = in_window[pairs[:, 0]] & in_window[pairs[:, 1]]
-        gp = np.sort(gids[pairs[keep]], axis=1)
-        order = np.argsort(gids[in_window], kind="stable")
-        hier = HierarchyLevelData(
-            ids=gids[in_window][order],
-            sizes=sizes[in_window][order],
-            start_frames=global_frame0 + window_lo + start_f[in_window][order],
-            end_frames=global_frame0 + window_lo + end_f[in_window][order],
-            neighbor_pairs=gp)
+            win = compact[window_lo:last_output + 1]
+            start_f, end_f, _ = rle.region_presence(win, num_regions)
+            sizes = rle.region_sizes(win, num_regions)
+            in_window = sizes > 0
+            pairs = rle.neighbor_pairs(win)
+            keep = in_window[pairs[:, 0]] & in_window[pairs[:, 1]]
+            gp = np.sort(gids[pairs[keep]], axis=1)
+            order = np.argsort(gids[in_window], kind="stable")
+            hier = HierarchyLevelData(
+                ids=gids[in_window][order],
+                sizes=sizes[in_window][order],
+                start_frames=(global_frame0 + window_lo
+                              + start_f[in_window][order]),
+                end_frames=global_frame0 + window_lo + end_f[in_window][order],
+                neighbor_pairs=gp)
 
         results = []
-        for local in range(chunk_start, last_output + 1):
-            gimg = gids[compact[local]]
-            ids, counts, ys, lxs, rxs = rle.frame_rle(gimg)
-            results.append(SegFrame(
-                frame_width=w, frame_height=h,
-                region_ids=ids, interval_counts=counts,
-                ys=ys, lxs=lxs, rxs=rxs,
-                moments=rle.shape_moments(counts, ys, lxs, rxs),
-                chunk_size=out_chunk_size, overlap_start=out_chunk_size,
-                chunk_id=ctx["chunk_id"],
-                hierarchy_frame_idx=hierarchy_frame_idx,
-                hierarchy=[hier] if local == chunk_start else None,
-                frame_index=global_frame0 + local))
+        with span("host_tail.rle"):
+            for local in range(chunk_start, last_output + 1):
+                gimg = gids[compact[local]]
+                ids, counts, ys, lxs, rxs = rle.frame_rle(gimg)
+                results.append(SegFrame(
+                    frame_width=w, frame_height=h,
+                    region_ids=ids, interval_counts=counts,
+                    ys=ys, lxs=lxs, rxs=rxs,
+                    moments=rle.shape_moments(counts, ys, lxs, rxs),
+                    chunk_size=out_chunk_size, overlap_start=out_chunk_size,
+                    chunk_id=ctx["chunk_id"],
+                    hierarchy_frame_idx=hierarchy_frame_idx,
+                    hierarchy=[hier] if local == chunk_start else None,
+                    frame_index=global_frame0 + local))
         self._num_output_frames += len(results)
-        self.stage_seconds["host_tail"] += time.monotonic() - ctx["t0"]
         return results

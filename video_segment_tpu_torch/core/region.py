@@ -24,7 +24,6 @@ JAX package does.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -35,6 +34,7 @@ from video_segment_tpu_torch.core import agglomeration
 from video_segment_tpu_torch.core.dense import HierarchyLevelData, SegFrame
 from video_segment_tpu_torch.core.options import RegionSegmentationOptions
 from video_segment_tpu_torch.ops import rle
+from video_segment_tpu_torch.runtime.trace import Trace
 
 
 def _next_pow2(x: int) -> int:
@@ -216,11 +216,17 @@ class _FrameFeatures:
 
 class RegionSegmentation:
     """Chunk-set hierarchical segmentation.  `stage_seconds["region"]`
-    accumulates the wall-clock seconds spent in histograms, agglomeration
-    and emission."""
+    holds the wall-clock seconds spent in features, histograms,
+    agglomeration and emission: the `region` span of `trace`
+    (`runtime/trace.py`; a new one unless given), which also times its
+    parts (`region.features`, `.accumulate`, `.tables`, `.upload`,
+    `.levels`, `.hierarchy`, `.emit`) and counts per chunk set
+    `region.sets`, `region.regions` and `region.table_bytes` (the bytes of
+    the tables `agglomerate` copies to the device)."""
 
     def __init__(self, options: RegionSegmentationOptions, frame_width: int,
-                 frame_height: int, *, device: str | torch.device = "cuda"):
+                 frame_height: int, *, device: str | torch.device = "cuda",
+                 trace: Trace | None = None):
         self.options = options
         self.device = devmod.resolve(device)
         self.frame_width = frame_width
@@ -237,7 +243,11 @@ class RegionSegmentation:
         self._window_anchor: dict[int, np.ndarray] = {}
         self._frame_means: dict[int, np.ndarray] = {}
         self._prev_assign: list = []
-        self.stage_seconds = {"region": 0.0}
+        self.trace = trace if trace is not None else Trace()
+
+    @property
+    def stage_seconds(self) -> dict:
+        return {"region": self.trace.seconds.get("region", 0.0)}
 
     # -- per-frame feature ingestion -------------------------------------
 
@@ -248,7 +258,10 @@ class RegionSegmentation:
         bin (histograms.cpp:471-479) and the magnitude as float16.  The
         frame's Lab mean is kept for windowed appearance gains; the first
         frame of each window anchors it."""
-        t0 = time.monotonic()
+        with self.trace.span("region"), self.trace.span("region.features"):
+            self._add_features(frame_index, frame_bgr_u8, flow)
+
+    def _add_features(self, frame_index, frame_bgr_u8, flow):
         fb = fm = None
         if flow is not None:
             self._has_flow = True
@@ -270,39 +283,39 @@ class RegionSegmentation:
         wsz = self.options.appearance_window_size
         if wsz > 0:
             self._window_anchor.setdefault(frame_index // wsz, mean)
-        self.stage_seconds["region"] += time.monotonic() - t0
 
     # -- dense results ingestion -----------------------------------------
 
     def process_frames(self, flush: bool, seg_frames: list) -> list:
         """Feed dense-stage SegFrames; returns hierarchical SegFrames when a
         chunk set completes (or on flush)."""
-        t0 = time.monotonic()
         out = []
-        for sf in seg_frames:
-            if sf.hierarchy is not None and self._open_frames:
-                self._close_chunk()
-            self._open_frames.append(sf)
-            out += self._maybe_process_set(False)
-        if flush:
-            if self._open_frames:
-                self._close_chunk()
-            out += self._maybe_process_set(True)
-        self.stage_seconds["region"] += time.monotonic() - t0
+        with self.trace.span("region"):
+            for sf in seg_frames:
+                if sf.hierarchy is not None and self._open_frames:
+                    self._close_chunk()
+                self._open_frames.append(sf)
+                out += self._maybe_process_set(False)
+            if flush:
+                if self._open_frames:
+                    self._close_chunk()
+                out += self._maybe_process_set(True)
         return out
 
     # -- chunk bookkeeping ------------------------------------------------
 
     def _close_chunk(self):
-        frames = self._open_frames
-        self._open_frames = []
-        hier = frames[0].hierarchy[0]
-        chunk = _ChunkData(
-            frames=frames, gids=hier.ids.astype(np.int64),
-            sizes=hier.sizes, start_frames=hier.start_frames,
-            end_frames=hier.end_frames, neighbor_pairs=hier.neighbor_pairs)
-        self._accumulate_chunk(chunk)
-        self._chunks.append(chunk)
+        with self.trace.span("region.accumulate"):
+            frames = self._open_frames
+            self._open_frames = []
+            hier = frames[0].hierarchy[0]
+            chunk = _ChunkData(
+                frames=frames, gids=hier.ids.astype(np.int64),
+                sizes=hier.sizes, start_frames=hier.start_frames,
+                end_frames=hier.end_frames,
+                neighbor_pairs=hier.neighbor_pairs)
+            self._accumulate_chunk(chunk)
+            self._chunks.append(chunk)
 
     def _accumulate_chunk(self, chunk: _ChunkData):
         """Histogram accumulation for one chunk, cached on the host."""
@@ -423,6 +436,84 @@ class RegionSegmentation:
 
     def _process_set(self, chunks: list[_ChunkData], emit_all: bool) -> list:
         opts = self.options
+        span = self.trace.span
+        with span("region.tables"):
+            tb = self._set_tables(chunks)
+        all_gids, r, sizes = tb["all_gids"], tb["r"], tb["sizes"]
+        self.trace.count("region.sets")
+        self.trace.count("region.regions", r)
+        levels_raw = agglomeration.agglomerate(
+            tb["hist"], tb["fh"], tb["fc"], sizes, tb["edges"], r,
+            min_region_num=opts.min_region_num,
+            max_region_num=opts.max_region_num,
+            cutoff_fraction=opts.level_cutoff_fraction,
+            penalizer=opts.small_region_penalizer,
+            use_flow=self._has_flow and opts.use_flow,
+            constraints=tb["constraints"], win_hist=tb["whist"],
+            win_cnt=tb["wcnt"], reeval_cap=opts.agglo_reeval_cap,
+            max_subrounds=opts.agglo_subrounds, device=self.device,
+            trace=self.trace)
+        rcap = sizes.shape[0]
+        if not levels_raw:
+            levels_raw = [np.arange(rcap, dtype=np.int32)]
+
+        with span("region.hierarchy"):
+            level_ids = []
+            for lab in levels_raw:
+                ids = np.full(rcap, np.iinfo(np.int64).max, np.int64)
+                np.minimum.at(ids, lab[:r], all_gids)
+                level_ids.append(ids)
+            level_ids = self._inherit_ids(levels_raw, level_ids, all_gids,
+                                          sizes, r)
+            hierarchy = self._build_hierarchy(
+                levels_raw, level_ids, r, all_gids, sizes, tb["start_f"],
+                tb["end_f"], tb["pairs"])
+
+            keep = 0 if emit_all else opts.chunk_set_overlap
+            if keep:
+                ov_gids = np.unique(np.concatenate(
+                    [c.gids for c in chunks[-keep:]]))
+                pos = np.searchsorted(all_gids, ov_gids)
+                self._prev_assign = [
+                    (ov_gids, level_ids[lv][levels_raw[lv][pos]])
+                    for lv in range(len(levels_raw))]
+            else:
+                self._prev_assign = []
+
+        with span("region.emit"):
+            n_emit_chunks = (len(chunks) if emit_all
+                             else len(chunks) - opts.chunk_set_overlap)
+            out_frames = [sf for c in chunks[:n_emit_chunks]
+                          for sf in c.frames]
+            lab0 = levels_raw[0]
+            ids0 = level_ids[0]
+            results = []
+            first_idx = out_frames[0].frame_index
+            for k, sf in enumerate(out_frames):
+                idx = np.searchsorted(all_gids, sf.region_ids)
+                draw = ids0[lab0[idx]]
+                intervals = np.stack([sf.ys, sf.lxs, sf.rxs], axis=1)
+                img = rasterize_ids(draw, sf.interval_counts, intervals,
+                                    self.frame_height, self.frame_width)
+                rids, counts, ys, lxs, rxs = rle.frame_rle(img)
+                results.append(SegFrame(
+                    frame_width=self.frame_width,
+                    frame_height=self.frame_height,
+                    region_ids=rids, interval_counts=counts,
+                    ys=ys, lxs=lxs, rxs=rxs,
+                    moments=rle.shape_moments(counts, ys, lxs, rxs),
+                    chunk_size=len(out_frames),
+                    overlap_start=len(out_frames), chunk_id=self._set_id,
+                    hierarchy_frame_idx=first_idx,
+                    hierarchy=hierarchy if k == 0 else None,
+                    frame_index=sf.frame_index))
+        self._set_id += 1
+        return results
+
+    def _set_tables(self, chunks: list[_ChunkData]) -> dict:
+        """A chunk set's statistics tables, edges and counterpart
+        constraints, merged on the host from its chunks."""
+        opts = self.options
         all_gids = np.unique(np.concatenate([c.gids for c in chunks]))
         r = len(all_gids)
         rcap = _next_pow2(r + 1)
@@ -488,67 +579,10 @@ class RegionSegmentation:
                         carr[hidx] = inv.astype(np.int32)
                 constraints.append(carr)
 
-        levels_raw = agglomeration.agglomerate(
-            hist, fh, fc, sizes, edges, r,
-            min_region_num=opts.min_region_num,
-            max_region_num=opts.max_region_num,
-            cutoff_fraction=opts.level_cutoff_fraction,
-            penalizer=opts.small_region_penalizer,
-            use_flow=self._has_flow and opts.use_flow,
-            constraints=constraints, win_hist=whist, win_cnt=wcnt,
-            reeval_cap=opts.agglo_reeval_cap,
-            max_subrounds=opts.agglo_subrounds, device=self.device)
-        if not levels_raw:
-            levels_raw = [np.arange(rcap, dtype=np.int32)]
-
-        level_ids = []
-        for lab in levels_raw:
-            ids = np.full(rcap, np.iinfo(np.int64).max, np.int64)
-            np.minimum.at(ids, lab[:r], all_gids)
-            level_ids.append(ids)
-        level_ids = self._inherit_ids(levels_raw, level_ids, all_gids,
-                                      sizes, r)
-        hierarchy = self._build_hierarchy(levels_raw, level_ids, r, all_gids,
-                                          sizes, start_f, end_f, pairs)
-
-        keep = 0 if emit_all else opts.chunk_set_overlap
-        if keep:
-            ov_gids = np.unique(np.concatenate(
-                [c.gids for c in chunks[-keep:]]))
-            pos = np.searchsorted(all_gids, ov_gids)
-            self._prev_assign = [
-                (ov_gids, level_ids[lv][levels_raw[lv][pos]])
-                for lv in range(len(levels_raw))]
-        else:
-            self._prev_assign = []
-
-        n_emit_chunks = (len(chunks) if emit_all
-                         else len(chunks) - opts.chunk_set_overlap)
-        out_frames = [sf for c in chunks[:n_emit_chunks] for sf in c.frames]
-        lab0 = levels_raw[0]
-        ids0 = level_ids[0]
-        results = []
-        first_idx = out_frames[0].frame_index
-        for k, sf in enumerate(out_frames):
-            idx = np.searchsorted(all_gids, sf.region_ids)
-            draw = ids0[lab0[idx]]
-            intervals = np.stack([sf.ys, sf.lxs, sf.rxs], axis=1)
-            img = rasterize_ids(draw, sf.interval_counts, intervals,
-                                self.frame_height, self.frame_width)
-            rids, counts, ys, lxs, rxs = rle.frame_rle(img)
-            results.append(SegFrame(
-                frame_width=self.frame_width,
-                frame_height=self.frame_height,
-                region_ids=rids, interval_counts=counts,
-                ys=ys, lxs=lxs, rxs=rxs,
-                moments=rle.shape_moments(counts, ys, lxs, rxs),
-                chunk_size=len(out_frames), overlap_start=len(out_frames),
-                chunk_id=self._set_id,
-                hierarchy_frame_idx=first_idx,
-                hierarchy=hierarchy if k == 0 else None,
-                frame_index=sf.frame_index))
-        self._set_id += 1
-        return results
+        return dict(all_gids=all_gids, r=r, sizes=sizes, start_f=start_f,
+                    end_f=end_f, hist=hist, fh=fh, fc=fc, whist=whist,
+                    wcnt=wcnt, pairs=pairs, edges=edges,
+                    constraints=constraints)
 
     def _inherit_ids(self, levels_raw, level_ids, all_gids, sizes, r):
         """Carry hierarchy ids across chunk sets (see the JAX package): a

@@ -6,11 +6,17 @@ over-segmentation -> hierarchical region segmentation -> .pb / rendered
 video outputs.  Flag names mirror the reference CLI.
 
 Port of video_segment_tpu/tools/seg_tree.py, the same logic line for line,
-with two differences: `--device` (default "cuda"; a machine without CUDA
-exits before a frame is decoded, nothing falls back to the CPU) reaches
-every stage object, and `VST_PROFILE=<dir>` records a `torch.profiler`
-trace (CPU and, on a card, CUDA activities) written there as a Chrome
-trace.  Solver and region knobs this package does not run yet are refused
+with three differences: `--device` (default "cuda"; a machine without
+CUDA exits before a frame is decoded, nothing falls back to the CPU)
+reaches every stage object; `VST_PROFILE=<dir>` records a
+`torch.profiler` trace (CPU and, on a card, CUDA activities) written
+there as a Chrome trace, in which the stages' spans (`runtime/trace.py`)
+are named ranges; and, a profile without a profiler, the run's last lines
+include one with each span's milliseconds a frame (`ingest_preseg`,
+`chunk_solve`, `host_tail` and its parts, `region` and its parts; the
+stages run in threads, so they do not add up to the wall clock) and each
+counter (`region.sets`, `region.regions`, `region.table_bytes`): the
+dense and region stages share one trace.  Solver and region knobs this package does not run yet are refused
 by the stage constructors; the error leaves the CLI as it was raised.
 """
 
@@ -211,7 +217,8 @@ def main(argv=None):
         save_descriptors = ropts.save_descriptors
         region_stage = region.RegionSegmentation(ropts,
                                                  info.width, info.height,
-                                                 device=device)
+                                                 device=device,
+                                                 trace=ds.trace)
 
     resume_from = 0
     if args.resume:
@@ -492,6 +499,7 @@ def main(argv=None):
 
     dt = time.time() - t0
     fps = n_out / dt if dt > 0 else 0.0
+    print(ds.trace.summary(n_out))
     print(f"Processed {n_out} frames in {dt:.2f}s ({fps:.2f} fps)")
     print("__SEGMENTATION_FINISHED__")
     return 0
