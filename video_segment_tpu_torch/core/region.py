@@ -16,8 +16,12 @@ distance replaces the appearance term in agglomeration.
 the JAX package.  Histograms come from the port's native threaded
 accumulator (`native/`); `_accumulate_all` and `_accumulate_windowed` are
 the torch paths when that library is unavailable.  Lab conversion is
-`bgr_to_lab_u8` (OpenCV's 8-bit BGR->Lab formula; no cv2 import); flow
-angles are binned and magnitudes rounded to float16 in NumPy exactly as the
+`bgr_to_lab_u8` (OpenCV's 8-bit BGR->Lab formula; no cv2 import): one
+native pass that also sums the channels for the frame's Lab mean, or,
+without the library, its NumPy body, which is the same integer arithmetic
+and the oracle the native pass is tested against (counter
+`region.lab_native` counts the frames converted natively); flow angles
+are binned and magnitudes rounded to float16 in NumPy exactly as the
 JAX package does.
 """
 
@@ -74,10 +78,9 @@ def _descale(x, n):
     return (x + (1 << (n - 1))) >> n
 
 
-def bgr_to_lab_u8(frame_bgr_u8: np.ndarray) -> np.ndarray:
-    """(H,W,3) uint8 BGR -> uint8 Lab with OpenCV's 8-bit encoding
-    (L*255/100, a+128, b+128; sRGB gamma, D65 white), within 1 of
-    cv2.cvtColor(COLOR_BGR2Lab) on every channel."""
+def _bgr_to_lab_numpy(frame_bgr_u8: np.ndarray) -> np.ndarray:
+    """The NumPy body of `bgr_to_lab_u8`: the oracle the native pass is
+    held to, and the path where the native library is unavailable."""
     rgb = _GAMMA_TAB[frame_bgr_u8[..., ::-1]]
     f = [_CBRT_TAB[_descale(rgb @ _XYZ_COEFFS[i], _LAB_SHIFT)]
          for i in range(3)]
@@ -89,6 +92,29 @@ def bgr_to_lab_u8(frame_bgr_u8: np.ndarray) -> np.ndarray:
                     _descale(200 * (f[1] - f[2]) + half, _LAB_SHIFT2)],
                    axis=-1)
     return np.clip(lab, 0, 255).astype(np.uint8)
+
+
+def _lab_and_sums(frame_bgr_u8: np.ndarray):
+    """(Lab, (3,) int64 channel sums) from the native pass, or (Lab, None)
+    from the NumPy body where the native library is unavailable."""
+    got = native.bgr_to_lab_u8(frame_bgr_u8, _GAMMA_TAB, _CBRT_TAB,
+                               _XYZ_COEFFS)
+    if got is None:
+        return _bgr_to_lab_numpy(frame_bgr_u8), None
+    return got
+
+
+def bgr_to_lab_u8(frame_bgr_u8: np.ndarray) -> np.ndarray:
+    """(H,W,3) uint8 BGR -> uint8 Lab with OpenCV's 8-bit encoding
+    (L*255/100, a+128, b+128; sRGB gamma, D65 white), within 1 of
+    cv2.cvtColor(COLOR_BGR2Lab) on every channel.  One native pass
+    (`native.bgr_to_lab_u8`) where the library builds, else the NumPy
+    body; the two are the same integer arithmetic and give the same
+    bytes."""
+    return _lab_and_sums(frame_bgr_u8)[0]
+
+
+_BGR_TO_LAB_U8 = bgr_to_lab_u8
 
 
 def rasterize_ids(draw_ids, counts, intervals, h, w) -> np.ndarray:
@@ -222,7 +248,8 @@ class RegionSegmentation:
     parts (`region.features`, `.accumulate`, `.tables`, `.upload`,
     `.levels`, `.hierarchy`, `.emit`) and counts per chunk set
     `region.sets`, `region.regions` and `region.table_bytes` (the bytes of
-    the tables `agglomerate` copies to the device)."""
+    the tables `agglomerate` copies to the device), and per frame
+    `region.lab_native` (a frame converted to Lab by the native pass)."""
 
     def __init__(self, options: RegionSegmentationOptions, frame_width: int,
                  frame_height: int, *, device: str | torch.device = "cuda",
@@ -276,8 +303,17 @@ class RegionSegmentation:
             fb = np.clip((ang * self.options.flow_bins).astype(np.int32),
                          0, self.options.flow_bins - 1).astype(np.int8)
             fm = np.hypot(flow[..., 0], flow[..., 1]).astype(np.float16)
-        lab = bgr_to_lab_u8(frame_bgr_u8)
-        mean = lab.reshape(-1, 3).mean(axis=0).astype(np.float32)
+        if bgr_to_lab_u8 is _BGR_TO_LAB_U8:
+            lab, sums = _lab_and_sums(frame_bgr_u8)
+        else:  # a conversion put in its place (cv2's, in parity tests)
+            lab, sums = bgr_to_lab_u8(frame_bgr_u8), None
+        if sums is None:
+            mean = lab.reshape(-1, 3).mean(axis=0).astype(np.float32)
+        else:
+            # Float64 partial sums of uint8 are exact integers, so this is
+            # the float32 mean NumPy's gives.
+            mean = (sums / (lab.size // 3)).astype(np.float32)
+            self.trace.count("region.lab_native")
         self._features[frame_index] = _FrameFeatures(lab, fb, fm)
         self._frame_means[frame_index] = mean
         wsz = self.options.appearance_window_size

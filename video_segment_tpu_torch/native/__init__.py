@@ -1,5 +1,10 @@
 """ctypes bindings for the native host kernels (built on first use).
 
+The helpers (`vst_native.cc` describes each): connected components,
+run-length encoding, the threaded Lab histogram fill, a weighted bincount,
+tube linking, neighbour pairs, the colour chi-square per edge, and the
+region stage's BGR->Lab with the frame's channel sums.
+
 g++ builds `vst_native.cc` into the package's git-ignored `_build/`
 directory, named by a hash of the source, so concurrent processes never
 load a half-written library.  Falls back to None handles if the toolchain
@@ -91,6 +96,12 @@ def _load():
         ctypes.POINTER(ctypes.c_float), ctypes.c_int32,
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_float)]
+    lib.bgr_to_lab_u8.restype = None
+    lib.bgr_to_lab_u8.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64)]
     _lib = lib
     return lib
 
@@ -223,6 +234,28 @@ def chi_square_edges(hist: np.ndarray, edges: np.ndarray,
             len(edges), n_threads,
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out
+
+
+def bgr_to_lab_u8(frame_bgr_u8: np.ndarray, gamma_tab: np.ndarray,
+                  cbrt_tab: np.ndarray, coeffs: np.ndarray):
+    """(..., 3) uint8 BGR -> ((..., 3) uint8 Lab, (3,) int64 channel sums)
+    in one single-threaded pass over the tables of `core/region.py`, the
+    same bytes as that module's NumPy body; None if the library is
+    unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    frame = np.ascontiguousarray(frame_bgr_u8, np.uint8)
+    lab = np.empty_like(frame)
+    sums = np.zeros(3, np.int64)
+    ip = ctypes.POINTER(ctypes.c_int64)
+    up = ctypes.POINTER(ctypes.c_uint8)
+    tabs = [np.ascontiguousarray(t, np.int64)
+            for t in (gamma_tab, cbrt_tab, coeffs)]
+    lib.bgr_to_lab_u8(frame.ctypes.data_as(up), frame.size // 3,
+                      *(t.ctypes.data_as(ip) for t in tabs),
+                      lab.ctypes.data_as(up), sums.ctypes.data_as(ip))
+    return lab, sums
 
 
 def neighbor_pairs(labels: np.ndarray,

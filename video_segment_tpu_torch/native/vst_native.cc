@@ -9,6 +9,9 @@
 //  - rle_encode_rows: run-length extraction of a label image.
 //  - chi_square_edges: the region stage's colour chi-square per edge on
 //    the CPU, in the float order of the JAX package's compiled sums.
+//  - bgr_to_lab_u8: the region stage's per-frame 8-bit BGR->Lab and the
+//    frame's Lab channel sums in one pass, the integer arithmetic of
+//    core/region.py's NumPy body (the oracle) on that module's tables.
 //
 // Built as a plain shared library, bound via ctypes (no pybind11 in this
 // image).
@@ -379,6 +382,55 @@ int64_t neighbor_pairs(const int32_t* labels, int32_t t, int32_t h,
   if (static_cast<int64_t>(merged.size()) > max_pairs) return -1;
   std::copy(merged.begin(), merged.end(), out);
   return static_cast<int64_t>(merged.size());
+}
+
+// OpenCV's fixed-point 8-bit BGR->Lab (color.cpp, RGB2Lab_b) of n pixels
+// and the sum of each Lab channel, in one pass.  The arithmetic is that of
+// the NumPy body of core/region.py's bgr_to_lab_u8, which is the oracle:
+// the same int64 products, _descale rounding at shifts 12 and 15, lscale,
+// lshift and half, and the clip to [0, 255], so the bytes are equal.  The
+// tables are that module's, passed in: gamma_tab (256) int64, cbrt_tab
+// (3072) int64, coeffs (3, 3) int64 row-major XYZ rows.  bgr and lab are
+// (n, 3) uint8; sums gets 3 int64.
+void bgr_to_lab_u8(const uint8_t* bgr, int64_t n, const int64_t* gamma_tab,
+                   const int64_t* cbrt_tab, const int64_t* coeffs,
+                   uint8_t* lab, int64_t* sums) {
+  constexpr int kShift = 12, kShift2 = 15;
+  constexpr int64_t kLScale = (116 * 255 + 50) / 100;
+  constexpr int64_t kLShift =
+      -((16LL * 255 * (int64_t{1} << kShift2) + 50) / 100);
+  constexpr int64_t kHalf = int64_t{128} << kShift2;
+  // Arithmetic shifts, as NumPy's >> on int64.
+  auto descale = [](int64_t x, int s) {
+    return (x + (int64_t{1} << (s - 1))) >> s;
+  };
+  auto clip = [](int64_t v) -> uint8_t {
+    return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+  };
+  int64_t s0 = 0, s1 = 0, s2 = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t* px = bgr + 3 * i;
+    const int64_t r = gamma_tab[px[2]], g = gamma_tab[px[1]],
+                  b = gamma_tab[px[0]];
+    int64_t f[3];
+    for (int k = 0; k < 3; ++k) {
+      const int64_t* c = coeffs + 3 * k;
+      f[k] = cbrt_tab[descale(r * c[0] + g * c[1] + b * c[2], kShift)];
+    }
+    const uint8_t l = clip(descale(kLScale * f[1] + kLShift, kShift2));
+    const uint8_t a = clip(descale(500 * (f[0] - f[1]) + kHalf, kShift2));
+    const uint8_t bb = clip(descale(200 * (f[1] - f[2]) + kHalf, kShift2));
+    uint8_t* out = lab + 3 * i;
+    out[0] = l;
+    out[1] = a;
+    out[2] = bb;
+    s0 += l;
+    s1 += a;
+    s2 += bb;
+  }
+  sums[0] = s0;
+  sums[1] = s1;
+  sums[2] = s2;
 }
 
 }  // extern "C"
