@@ -9,7 +9,11 @@ against its limit in `limits/<cell>.json`:
 
 - `frames_wrong`: frames missing over every clip of the window, and frames
   unparseable, of the wrong size or with a pixel that no scanline of
-  exactly one region covers, over the clips compared (limit 0).
+  exactly one region covers, over the clips compared (limit 0).  A frame
+  whose regions carry no scanlines (`seg_tree --write_to_file`, which
+  keeps only the boundary polygons) is rasterized here from its
+  `vector_mesh` (`polygon_intervals`): a pixel that no region's polygons,
+  or more than one region's, hold counts the same way.
 - `hierarchy_faults`: over the clips compared, chunk sets whose first
   frame carries no hierarchy, or a hierarchy of one level; level-0 ids of
   a set's frames that its hierarchy's level 0 lacks; regions below the top
@@ -97,6 +101,8 @@ def parse_frame(payload: bytes, w: int, h: int):
             ys.append(s.y)
             lxs.append(s.left_x)
             rxs.append(s.right_x)
+    if not ids and desc.HasField("vector_mesh"):
+        ids, ys, lxs, rxs = polygon_intervals(desc, h, w)
     lab = fill(np.asarray(ids, np.int64), np.asarray(ys, np.int64),
                np.asarray(lxs, np.int64), np.asarray(rxs, np.int64), h, w)
     hier = None
@@ -106,6 +112,63 @@ def parse_frame(payload: bytes, w: int, h: int):
                              for c in lv.region], np.int64))
                 for lv in desc.hierarchy]
     return lab, hier
+
+
+def polygon_intervals(desc, h: int, w: int) -> tuple:
+    """(ids, ys, lxs, rxs) of the scanline intervals that a frame's
+    boundary polygons enclose.  Vertex N of a polygon is (coord[i],
+    coord[i + 1]) for i = coord_idx[N], in corner space [0, W] x [0, H];
+    the ring closes from its last vertex to its first.  A pixel belongs to
+    a region when its centre (x + 0.5, y + 0.5) lies inside an odd number
+    of the region's rings (inside its outer rings, outside its holes):
+    a ray to the right counts an edge whose y range holds the centre's y,
+    half open (lower end in, upper end out), where it crosses strictly to
+    the right of the centre.  Each edge is taken from its lower end, so
+    that two regions sharing it (neighbouring polygons share vertices
+    exactly) compute the same crossing, and a centre on it goes to
+    exactly one of them."""
+    coord = np.asarray(desc.vector_mesh.coord, np.float64)
+    reg, x0, y0, x1, y1 = [], [], [], [], []
+    for k, r in enumerate(desc.region):
+        for poly in r.vectorization.polygon:
+            idx = np.asarray(poly.coord_idx, np.int64)
+            if len(idx) < 3:
+                continue
+            if idx.min() < 0 or idx.max() + 1 >= len(coord):
+                raise ValueError("polygon vertex outside the mesh")
+            px, py = coord[idx], coord[idx + 1]
+            reg.append(np.full(len(idx), k))
+            x0.append(px)
+            y0.append(py)
+            x1.append(np.roll(px, -1))
+            y1.append(np.roll(py, -1))
+    if not reg:
+        return [], [], [], []
+    reg, x0, y0, x1, y1 = map(np.concatenate, (reg, x0, y0, x1, y1))
+    down = y0 > y1
+    x0, x1 = np.where(down, x1, x0), np.where(down, x0, x1)
+    y0, y1 = np.where(down, y1, y0), np.where(down, y0, y1)
+    # Rows whose centre y + 0.5 lies in [y0, y1).
+    r0 = np.ceil(y0 - 0.5).astype(np.int64)
+    nrow = np.maximum(np.ceil(y1 - 0.5).astype(np.int64) - r0, 0)
+    e = np.repeat(np.arange(len(reg)), nrow)
+    row = r0[e] + np.arange(int(nrow.sum())) - np.repeat(
+        np.cumsum(nrow) - nrow, nrow)
+    if len(row) and (row.min() < 0 or row.max() >= h):
+        raise ValueError("polygon outside the frame")
+    xc = x0[e] + (row + 0.5 - y0[e]) * (x1[e] - x0[e]) / (y1[e] - y0[e])
+    # The crossing holds the pixels x < k: their centres lie left of it.
+    k = np.clip(np.ceil(xc - 0.5), 0, w).astype(np.int64)
+    rg = reg[e]
+    order = np.lexsort((k, row, rg))
+    rg, row, k = rg[order], row[order], k[order]
+    if len(k) % 2 or (rg[0::2] != rg[1::2]).any() or \
+            (row[0::2] != row[1::2]).any():
+        raise ValueError("a ring that does not close")
+    lx, rx = k[0::2], k[1::2] - 1
+    keep = rx >= lx
+    ids = np.asarray([r.id for r in desc.region], np.int64)
+    return ids[rg[0::2][keep]], row[0::2][keep], lx[keep], rx[keep]
 
 
 def fill(ids, ys, lxs, rxs, h: int, w: int) -> np.ndarray:

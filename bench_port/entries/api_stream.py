@@ -28,7 +28,7 @@ class Entry:
         """Segment one clip (from `prepare`) as a new stream into
         `pb_path`.  Returns the per-frame pull and yield times (host
         clock), the end time (the `.pb` closed) and the stream's stage
-        seconds."""
+        seconds and counters."""
         from video_segment_tpu_torch import api
         from video_segment_tpu_torch.dataio import emit, seg_io
 
@@ -60,4 +60,5 @@ class Entry:
         latencies = [done[i] - pulled[i] for i in sorted(done)
                      if i in pulled]
         return {"frames": n, "end": end, "latencies": latencies,
-                "stage_seconds": dict(stream.stage_seconds)}
+                "stage_seconds": dict(stream.stage_seconds),
+                "counters": dict(stream.counters)}

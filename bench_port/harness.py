@@ -3,7 +3,8 @@ check of the output against the drawn scene, and the result line.
 
 Everything that belongs to a configuration, a traffic mix or a metric is
 found by name: `configs/<config>.json`, `traffic/<traffic>.json` (its
-`entry` names the module under `entries/` that drives the port),
+`entry` names the module under `entries/` that drives the port, its
+`checks` the modules under `checks/` that add numbers to the check),
 `metrics/<metric>.py` and `limits/<cell>.json`.
 """
 
@@ -155,6 +156,16 @@ def _attribute_gaps(gaps: list, host: list, top: int = 400) -> list:
     return sorted(([n, t] for n, t in out.items()), key=lambda x: -x[1])[:10]
 
 
+def clip_sums(clips: list, key: str) -> dict:
+    """Each name's values in the clips' `key` dicts (`stage_seconds`,
+    `counters`), summed over the clips."""
+    out: dict = {}
+    for c in clips:
+        for k, v in c.get(key, {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def sample_clips(n: int, seed: int, k: int) -> set:
     """The clips of the window whose frames the check compares: `k` drawn
     from the seed (every clip where there are no more); the others are
@@ -222,13 +233,17 @@ def _measure(entry, warm, clip_in, work: str, seconds: float, trace: bool,
     return clips, pbs, t_start, setup_s, traced
 
 
-def _check(pbs: list, checked: set, truth, config: dict) -> dict:
+def _check(pbs: list, checked: set, truth: dict, config: dict,
+           traffic: dict, files: list) -> dict:
     """The clips' `.pb` files against the drawn scene and the
-    configuration's guarantees: the numbers that `limits/<cell>.json`
-    bounds (`compare.py`)."""
+    configuration's guarantees, then each check the traffic names
+    (`checks/<name>.py`: `numbers(files, truth, config, traffic)` over the
+    side files of the compared clips, in clip order): the numbers that
+    `limits/<cell>.json` bounds (`compare.py`)."""
     from bench_port import compare
     _log("window closed; comparing")
-    n = truth.shape[0]
+    objects = truth["objects"]
+    n = objects.shape[0]
     numbers = {"frames_wrong": 0}
     for k, pb in enumerate(pbs):
         if k not in checked:
@@ -237,19 +252,31 @@ def _check(pbs: list, checked: set, truth, config: dict) -> dict:
         sets, wrong = compare.program_sets(pb, n, config["width"],
                                            config["height"])
         numbers["frames_wrong"] += wrong
-        for key, v in compare.clip_numbers(sets, truth).items():
+        for key, v in compare.clip_numbers(sets, objects).items():
             numbers[key] = max(numbers.get(key, 0), v)
+    for name in traffic.get("checks", []):
+        mod = importlib.import_module(f"bench_port.checks.{name}")
+        numbers.update(mod.numbers(files, truth, config, traffic))
     _log("compared")
     return numbers
 
 
 def make_clip(traffic: dict, config: dict, seed: int) -> tuple:
-    """(frames, each pixel's drawn object) of the cell's clip."""
+    """(frames, truth) of the cell's clip: truth["objects"] is each
+    pixel's drawn object; with the traffic's `texture_motion` "rigid",
+    truth["flow"] and truth["valid"] are the drawn backward displacement
+    and where it holds (`generator._motion`)."""
     from bench_port import generator
-    return generator.synthetic_clip(
+    motion = traffic.get("texture_motion", "panned")
+    out = generator.synthetic_clip(
         traffic["clip_frames"], seed=seed, h=config["height"],
         w=config["width"], shapes=traffic["shapes"], sizes=traffic["sizes"],
-        texture=traffic["texture"], noise=traffic["noise"], truth=True)
+        texture=traffic["texture"], noise=traffic["noise"], truth=True,
+        texture_motion=motion, motion=motion == "rigid")
+    truth = {"objects": out[1]}
+    if len(out) > 2:
+        truth.update(out[2])
+    return out[0], truth
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool,
@@ -287,19 +314,17 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
                              for n, v in rec["launches"].items()
                              if "tile_" in n))
             plain = [c for c in clips if not c.get("traced")] or clips
-            stages: dict = {}
-            for c in plain:
-                for k, v in c.get("stage_seconds", {}).items():
-                    stages[k] = stages.get(k, 0.0) + v
-            rec.update(stage_seconds=stages,
+            rec.update(stage_seconds=clip_sums(plain, "stage_seconds"),
+                       counters=clip_sums(plain, "counters"),
                        stage_frames=sum(c["frames"] for c in plain),
                        traced_solves=generator.chunk_solves(
                            len(frames),
                            config["dense_options"]["chunk_size"]))
         checked = sample_clips(len(pbs), seed, CLIPS_COMPARED)
+        files = [clips[k].get("files", {}) for k in sorted(checked)]
         del entry, clips, warm, clip_in
         gc.collect()
-        numbers = _check(pbs, checked, truth, config)
+        numbers = _check(pbs, checked, truth, config, traffic, files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -66,24 +66,64 @@ class _Stream:
     def stage_seconds(self):
         return self.stream.stage_seconds
 
+    @property
+    def counters(self):
+        return self.stream.counters
 
-def _run(monkeypatch, fault=None):
+
+def _run(monkeypatch, fault=None, seed=2 ** 33 + 3):
     torch.set_num_threads(2)
     if fault is not None:
         from video_segment_tpu_torch import api
         real = api.segment_frames
         monkeypatch.setattr(api, "segment_frames",
                             lambda *a, **k: _Stream(real(*a, **k), fault))
-    result, lines = harness.run(CELL, 2 ** 33 + 3, 0.0, False, "cpu",
+    result, lines = harness.run(CELL, seed, 0.0, False, "cpu",
                                 time.monotonic(), small_cell())
     assert list(result)[-1] == "checks" and len(lines) == 3
     return result
+
+
+# The check's numbers of two runs of the small cell, read before the
+# polygon rasterizer, the named checks and the drawn motion were added.
+BEFORE = {2 ** 33 + 3: 0.106201171875, 17: 0.0496826171875}
+
+
+def _as_before(checks, seed):
+    assert {k: c["value"] for k, c in checks.items()} == {
+        "frames_wrong": 0, "hierarchy_faults": 0, "leak": BEFORE[seed]}
 
 
 def test_sound_run_is_correct(monkeypatch):
     result = _run(monkeypatch)
     assert result["correct"], result["checks"]
     assert result["checks"]["hierarchy_faults"]["value"] == 0
+    _as_before(result["checks"], 2 ** 33 + 3)
+
+
+def test_check_numbers_as_before(monkeypatch):
+    _as_before(_run(monkeypatch, seed=17)["checks"], 17)
+
+
+def test_clip_sums():
+    clips = [{"stage_seconds": {"region": 1.5}, "counters": {"n": 2}},
+             {"stage_seconds": {"region": 0.25, "flow": 1.0},
+              "counters": {"n": 3, "m": 1}}, {}]
+    assert harness.clip_sums(clips, "stage_seconds") == {"region": 1.75,
+                                                         "flow": 1.0}
+    assert harness.clip_sums(clips, "counters") == {"n": 5, "m": 1}
+
+
+def test_api_stream_returns_counters(tmp_path):
+    from bench_port import generator
+    from bench_port.entries import api_stream
+    torch.set_num_threads(2)
+    _, _, config, _, _ = small_cell()
+    frames = generator.synthetic_clip(9, seed=2, h=64, w=128)
+    entry = api_stream.Entry(config, "cpu", str(tmp_path))
+    out = entry.run_clip(entry.prepare(frames), str(tmp_path / "c.pb"))
+    assert out["frames"] == 9 and out["stage_seconds"]["region"] > 0
+    assert out["counters"]["region.sets"] >= 1
 
 
 @pytest.mark.parametrize("fault", ["altered", "half_left_out",

@@ -1,10 +1,11 @@
 """Without a card the measurement path exits with code 2 and prints no
-result; nothing the harness, the check or the entries import loads
-`jax`, `jaxlib`, `flax` or `video_segment_tpu` (top-level names compared
-whole), and the check's reference (`compare.py`, `generator.py`) imports
-nothing of the port."""
+result; nothing the harness, the check, the checks or the entries import
+loads `jax`, `jaxlib`, `flax` or `video_segment_tpu` (top-level names
+compared whole), and the check's reference (`compare.py`, `generator.py`,
+`checks/`) imports nothing of the port, nor cv2."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -35,7 +36,8 @@ def test_imports_load_no_jax():
         "sys.path.insert(0, '.')\n"
         "import bench_port.harness, bench_port.control, bench_port.compare\n"
 
-        "for pkg in ('bench_port.entries', 'bench_port.metrics'):\n"
+        "for pkg in ('bench_port.entries', 'bench_port.metrics',\n"
+        "            'bench_port.checks'):\n"
         "    p = importlib.import_module(pkg)\n"
         "    for m in pkgutil.iter_modules(p.__path__):\n"
         "        importlib.import_module(pkg + '.' + m.name)\n"
@@ -51,7 +53,9 @@ def test_imports_load_no_jax():
 
 
 @pytest.mark.parametrize("name", ["compare.py", "generator.py",
-                                  "proto_schema.py"])
+                                  "proto_schema.py"] + sorted(
+    os.path.relpath(p, os.path.join(ROOT, "bench_port")) for p in
+    glob.glob(os.path.join(ROOT, "bench_port", "checks", "*.py"))))
 def test_reference_imports_nothing_of_the_port(name):
     with open(os.path.join(ROOT, "bench_port", name)) as fh:
         tree = ast.parse(fh.read())
@@ -63,4 +67,4 @@ def test_reference_imports_nothing_of_the_port(name):
             names = [node.module]
         for n in names:
             assert n.split(".")[0] not in BANNED + (
-                "video_segment_tpu_torch",), (name, n)
+                "video_segment_tpu_torch", "cv2"), (name, n)

@@ -55,6 +55,9 @@ def test_workloads(manifest):
                 data = json.load(f)
             if part[0] == "traffic":
                 importlib.import_module(f"bench_port.entries.{data['entry']}")
+                for check in data.get("checks", []):
+                    mod = importlib.import_module(f"bench_port.checks.{check}")
+                    assert callable(mod.numbers)
 
 
 def test_metrics(manifest):
