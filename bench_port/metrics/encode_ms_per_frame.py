@@ -1,0 +1,9 @@
+"""Milliseconds a frame in the `encode` span of `seg_tree`'s trace (each
+frame's `.pb` encoding), summed over the window's untraced clips, over
+their frames; None where the program has no such span."""
+
+from bench_port.metrics._stage import ms_per_frame
+
+
+def read(rec):
+    return ms_per_frame(rec, "encode")

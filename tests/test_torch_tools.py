@@ -5,7 +5,11 @@ written here with cv2, chunk_size 4-5).  MJPG is lossy, so every comparison
 decodes the same file on both sides; where flow is on, both sides read the
 same `.flow` cache.  Tolerance: exact (bytes or arrays equal) everywhere
 except the flow fields the port's CLI computes itself, which are held to
-the JAX engine's within the TV-L1 tolerance of tests/test_torch_flow.py.
+the JAX engine's within the TV-L1 tolerance of tests/test_torch_flow.py,
+and the vectorized polygons of a frame whose JAX polygons overlap (a
+degenerate ring that the JAX package leaves apart from its neighbours, and
+the port repairs): there the port's polygons partition the frame and all
+else is equal (`assert_pb_matches_jax`).
 
 The two packages resolve `preseg_mode="auto"` differently off a TPU (felz
 here, flood there) and `seg_tree` has no flag for it, so the parity cases
@@ -41,6 +45,35 @@ COMMON = ["--write_to_file", "--chunk_size", "4", "--max_rate", "0",
 def read_bytes(path):
     with open(path, "rb") as f:
         return f.read()
+
+
+def assert_pb_matches_jax(got_path, want_path):
+    """The port's `.pb` equals the JAX package's frame for frame, byte for
+    byte, except in frames whose JAX polygons cover a pixel twice: there
+    the port's polygons partition the frame (each pixel centre in one
+    region, shoelace areas summing to W x H) and everything else in the
+    frame is equal.  Returns the count of such frames."""
+    from test_torch_joint_boundary import desc_coverage
+    got, want = pb_frames(got_path), pb_frames(want_path)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    repaired = 0
+    for (_, a), (_, b) in zip(got, want):
+        if a == b:
+            continue
+        da, db = proto.SegmentationDesc(), proto.SegmentationDesc()
+        da.ParseFromString(a)
+        db.ParseFromString(b)
+        assert desc_coverage(db)[0].max() > 1
+        cover, area = desc_coverage(da)
+        assert (cover == 1).all()
+        assert area == da.frame_width * da.frame_height
+        for d in (da, db):
+            d.ClearField("vector_mesh")
+            for r in d.region:
+                r.ClearField("vectorization")
+        assert da.SerializeToString() == db.SerializeToString()
+        repaired += 1
+    return repaired
 
 
 def write_clip(path, n_frames, seed=7, w=32, h=24):
@@ -321,7 +354,8 @@ FLAG_SETS = {
 @pytest.mark.parametrize("flags", list(FLAG_SETS), ids=list(FLAG_SETS))
 def test_seg_tree_matches_jax(long_video, tmp_path, monkeypatch, flags,
                               preseg):
-    """Same file, same flags: the .pb equal byte for byte.  With flow the
+    """Same file, same flags: the .pb equal byte for byte but for the
+    polygons the port repairs (`assert_pb_matches_jax`).  With flow the
     JAX run goes first with --save_flow and the port reads a copy of its
     `.flow` cache."""
     pin_preseg(monkeypatch, preseg)
@@ -329,13 +363,12 @@ def test_seg_tree_matches_jax(long_video, tmp_path, monkeypatch, flags,
     jvideo = stage(tmp_path, "jax", long_video)
     cache = None
     if flags == "flow_cached":
-        want = read_bytes(run_jax(jvideo, *argv, "--save_flow"))
+        want = run_jax(jvideo, *argv, "--save_flow")
         cache = jvideo + ".flow"
     else:
-        want = read_bytes(run_jax(jvideo, *argv))
-    got = read_bytes(run_port(stage(tmp_path, "port", long_video, cache),
-                              *argv))
-    assert got == want
+        want = run_jax(jvideo, *argv)
+    got = run_port(stage(tmp_path, "port", long_video, cache), *argv)
+    assert_pb_matches_jax(got, want)
     r = seg_io.SegmentationReader(jvideo + ".pb")
     assert r.open_and_read_headers() and r.num_frames == 12
     r.close()
@@ -344,7 +377,8 @@ def test_seg_tree_matches_jax(long_video, tmp_path, monkeypatch, flags,
 def test_seg_tree_computed_flow(long_video, tmp_path, monkeypatch):
     """Flow computed by the port's CLI (micro-batched TV-L1 on the CPU):
     the cache it writes is within the TV-L1 tolerance of the JAX CLI's,
-    and a second run that reads it equals JAX's run on that cache."""
+    and a second run that reads it equals JAX's run on that cache (but for
+    the polygons the port repairs)."""
     from video_segment_tpu.core import flow as jflow
     pin_preseg(monkeypatch, "felz")
     pvideo = stage(tmp_path, "port", long_video)
@@ -367,11 +401,11 @@ def test_seg_tree_computed_flow(long_video, tmp_path, monkeypatch):
     got.close()
     want.close()
     assert n == 11
-    again = read_bytes(run_port(stage(tmp_path, "port2", long_video,
-                                      pvideo + ".flow"), "--flow"))
-    jagain = read_bytes(run_jax(stage(tmp_path, "jax2", long_video,
-                                      pvideo + ".flow"), "--flow"))
-    assert again == jagain
+    again = run_port(stage(tmp_path, "port2", long_video, pvideo + ".flow"),
+                     "--flow")
+    jagain = run_jax(stage(tmp_path, "jax2", long_video, pvideo + ".flow"),
+                     "--flow")
+    assert_pb_matches_jax(again, jagain)
 
 
 # -- kill and resume through the CLI ---------------------------------------
@@ -492,7 +526,8 @@ def test_seg_tree_refused_knob_raises(tiny_video, tmp_path, monkeypatch,
                                       flag, value, message):
     """The off-default solver and region knobs through the CLI flags,
     the v1 pixel solver (edge_table=0) among them: every one runs, and the
-    port's .pb equals the JAX seg_tree's byte for byte (felz pinned, and
+    port's .pb equals the JAX seg_tree's byte for byte but for the polygons
+    the port repairs (`assert_pb_matches_jax`; felz pinned, and
     cv2's Lab in the port's region stage, ROADMAP.md Queue 3, F6); with
     save_descriptors every region of a hierarchy frame carries a
     RegionFeatures record."""
@@ -502,9 +537,9 @@ def test_seg_tree_refused_knob_raises(tiny_video, tmp_path, monkeypatch,
     monkeypatch.setattr(tregion, "bgr_to_lab_u8",
                         lambda im: cv2.cvtColor(im, cv2.COLOR_BGR2Lab))
     flags = ["--no-flow", flag, value]
-    want = read_bytes(run_jax(stage(tmp_path, "jax", tiny_video), *flags))
+    want = run_jax(stage(tmp_path, "jax", tiny_video), *flags)
     path = run_port(stage(tmp_path, "port", tiny_video), *flags)
-    assert read_bytes(path) == want
+    assert_pb_matches_jax(path, want)
     if value == "save_descriptors=1":
         n_hier = 0
         for _, payload in pb_frames(path):

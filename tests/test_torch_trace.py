@@ -1,9 +1,12 @@
 """The port's spans and counters (`runtime/trace.py`): what a
 `segment_frames` stream records, that the counters equal what the region
-stage builds, that streams keep their own traces, and that under a Kineto
+stage builds, that streams keep their own traces, that under a Kineto
 profiler every span is a user range on the profiler's clock (and no range
-is opened without one)."""
+is opened without one), and what `seg_tree.run` hands back: the flow
+engine's, the encoder's and the stages' spans and counters in one
+trace."""
 
+import contextlib
 import sys
 import threading
 import time
@@ -222,3 +225,47 @@ def test_span_from_an_earlier_start():
     assert rec.start == start and rec.end >= start + 0.02
     assert trace.seconds["late"] == pytest.approx(rec.end - start)
     assert "spans" in trace.summary(4) and "late 5." in trace.summary(4)
+
+
+def test_seg_tree_run_spans_flow_and_encoder(tmp_path, monkeypatch):
+    """`seg_tree.run` with flow on and `--write_to_file` over 13 frames:
+    one `flow` span a micro-batch of 6 pairs (frame 0 has no flow), one
+    `encode` span a frame with its `encode.vectorize` inside it on the
+    same thread, and counters that match the frames and pairs."""
+    import cv2
+
+    from video_segment_tpu_torch.tools import seg_tree
+    frames = clip(n=13)
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(tmp_path / f"{i:05d}.png"), f)
+    spans = []
+    real = Trace.span
+
+    @contextlib.contextmanager
+    def recording(self, name, start=None):
+        with real(self, name, start) as rec:
+            yield rec
+        spans.append((name, threading.get_ident(), rec.start, rec.end))
+
+    monkeypatch.setattr(Trace, "span", recording)
+    rc, trace = seg_tree.run([
+        "--input_file", str(tmp_path / "%05d.png"), "--output_file",
+        str(tmp_path / "out.pb"), "--write_to_file", "--chunk_size", "4",
+        "--device", "cpu"])
+    assert rc == 0
+    secs, counters = trace.seconds, trace.counters
+    by = {}
+    for name, tid, start, end in spans:
+        assert start <= end, name
+        by.setdefault(name, []).append((tid, start, end))
+    assert len(by["flow"]) == 2
+    assert counters["flow.pairs"] == 12
+    assert len(by["encode"]) == len(by["encode.vectorize"]) == 13
+    for tid, s, e in by["encode.vectorize"]:
+        assert any(t == tid and ps <= s and e <= pe
+                   for t, ps, pe in by["encode"])
+    assert 0 < secs["encode.vectorize"] <= secs["encode"]
+    assert secs["flow"] > 0
+    assert counters["encode.rings"] >= 13
+    for name in STAGES + ("region.levels",) + COUNTERS:
+        assert name in secs or name in counters, name

@@ -626,7 +626,7 @@ class DenseSegmentation:
                     solve_end: float) -> list[SegFrame]:
         """Rotate the streaming state and run (or queue) the host tail of
         a solved chunk; `host` from `_solve_to_host`, `solve_end` the host
-        clock when the solve ended, where the tail's seconds start."""
+        clock when the solve ended, where a queued tail's seconds start."""
         t = prep["t"]
         last_output = (t - 1) if flush else (t - self.overlap_frames)
         flow_np = None
@@ -674,9 +674,12 @@ class DenseSegmentation:
     def _chunk_tail(self, ctx, planes_ready) -> list[SegFrame]:
         """Host tail: compaction, spatial connectedness, global ids,
         overlap constraint planes (released via `planes_ready`), level-0
-        hierarchy and per-frame RLE.  Its seconds count from the end of
-        the chunk's solve."""
-        with self.trace.span("host_tail", start=ctx["solve_end"]):
+        hierarchy and per-frame RLE.  In the tail worker (`planes_ready`
+        given) its seconds count from the end of the chunk's solve, so
+        they include the wait for the worker; run in line they count the
+        block alone, which then equals its profiler range."""
+        start = ctx["solve_end"] if planes_ready is not None else None
+        with self.trace.span("host_tail", start=start):
             try:
                 return self._host_tail(ctx, planes_ready)
             finally:

@@ -17,6 +17,7 @@ This module imports neither jax nor cv2.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import struct
 from typing import NamedTuple
@@ -381,13 +382,17 @@ class FlowEngine:
     synchronous per frame; `push(frame, idx)` / `flush()` micro-batch
     `batch` pairs into one `tvl1_flow_batch` and return completed
     (idx, frame, flow) triples in order.  `device` defaults to "cuda" and
-    raises without CUDA, like every entry of the port."""
+    raises without CUDA, like every entry of the port.  With a `trace`
+    (`runtime/trace.py`), each micro-batch is a `flow` span (its launches
+    and, when a cache is written, the fields' download, which waits for
+    the device) and counts its computed fields in `flow.pairs`."""
 
     def __init__(self, width: int, height: int, cache_path: str | None = None,
                  params: TVL1Params = TVL1Params(), batch: int = 6,
                  flow_type: int = FLOW_BACKWARD, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", trace=None):
         self.device = devmod.resolve(device)
+        self.trace = trace
         self.params = params
         self.batch = max(batch, 1)
         self.flow_type = flow_type
@@ -486,6 +491,11 @@ class FlowEngine:
     def _drain(self) -> list:
         if not self._pending:
             return []
+        with (self.trace.span("flow") if self.trace is not None
+              else contextlib.nullcontext()):
+            return self._drain_batch()
+
+    def _drain_batch(self) -> list:
         grays = [g for _, _, g in self._pending]
         prevs = ([self._prev] if self._prev is not None
                  else [grays[0]]) + grays[:-1]
@@ -503,6 +513,9 @@ class FlowEngine:
             bwds = fields(tvl1_flow_batch(curs_a, prevs_a, self.params))
         if self.flow_type in (FLOW_FORWARD, FLOW_BOTH):
             fwds = fields(tvl1_flow_batch(prevs_a, curs_a, self.params))
+        if self.trace is not None:
+            self.trace.count("flow.pairs",
+                             n * (2 if self.flow_type == FLOW_BOTH else 1))
         out = []
         for (idx, frame, _), fw, bw in zip(self._pending, fwds, bwds):
             self._write_cached(fw, bw)

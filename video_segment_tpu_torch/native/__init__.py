@@ -2,8 +2,9 @@
 
 The helpers (`vst_native.cc` describes each): connected components,
 run-length encoding, the threaded Lab histogram fill, a weighted bincount,
-tube linking, neighbour pairs, the colour chi-square per edge, and the
-region stage's BGR->Lab with the frame's channel sums.
+tube linking, neighbour pairs, the colour chi-square per edge, the
+region stage's BGR->Lab with the frame's channel sums, and the `.pb`
+encoder's boundary tracer.
 
 g++ builds `vst_native.cc` into the package's git-ignored `_build/`
 directory, named by a hash of the source, so concurrent processes never
@@ -102,6 +103,12 @@ def _load():
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_int64)]
+    lib.trace_segments.restype = ctypes.c_int64
+    lib.trace_segments.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64]
     _lib = lib
     return lib
 
@@ -256,6 +263,35 @@ def bgr_to_lab_u8(frame_bgr_u8: np.ndarray, gamma_tab: np.ndarray,
                       *(t.ctypes.data_as(ip) for t in tabs),
                       lab.ctypes.data_as(up), sums.ctypes.data_as(ip))
     return lab, sums
+
+
+def trace_segments(label_img: np.ndarray):
+    """The boundary segments of an (H, W) label image (see vst_native.cc),
+    as (points (P, 2) int32 corner (x, y) of every segment back to back,
+    ends (S,) int64 each segment's end in points, sides (S, 2) int32 left
+    and right region, dirs (S, 2) int32 first and last step direction);
+    None if the library is unavailable.  Labels must fit in int32."""
+    lib = _load()
+    if lib is None:
+        return None
+    h, w = label_img.shape
+    lab = np.ascontiguousarray(label_img, np.int32)
+    # Each crack lies on one segment; a segment has one point more than
+    # it has cracks.
+    cracks = h * (w + 1) + (h + 1) * w
+    pts = np.empty((2 * cracks, 2), np.int32)
+    ends = np.empty(cracks, np.int64)
+    sides = np.empty((cracks, 2), np.int32)
+    dirs = np.empty((cracks, 2), np.int32)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    n = lib.trace_segments(lab.ctypes.data_as(i32), h, w,
+                           pts.ctypes.data_as(i32), len(pts),
+                           ends.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                           sides.ctypes.data_as(i32),
+                           dirs.ctypes.data_as(i32), cracks)
+    if n < 0:
+        raise RuntimeError("trace_segments: buffers too small")
+    return pts[:ends[n - 1] if n else 0], ends[:n], sides[:n], dirs[:n]
 
 
 def neighbor_pairs(labels: np.ndarray,

@@ -12,6 +12,9 @@
 //  - bgr_to_lab_u8: the region stage's per-frame 8-bit BGR->Lab and the
 //    frame's Lab channel sums in one pass, the integer arithmetic of
 //    core/region.py's NumPy body (the oracle) on that module's tables.
+//  - trace_segments: the `.pb` encoder's boundary segments of a label
+//    image, the walk of segment_util/joint_boundary.py's Python body (the
+//    oracle) step for step, so the segments and their order are equal.
 //
 // Built as a plain shared library, bound via ctypes (no pybind11 in this
 // image).
@@ -431,6 +434,144 @@ void bgr_to_lab_u8(const uint8_t* bgr, int64_t n, const int64_t* gamma_tab,
   sums[0] = s0;
   sums[1] = s1;
   sums[2] = s2;
+}
+
+// The boundary segments of an (h, w) int32 label image, as
+// segment_util/joint_boundary.py's `_trace_segments_py` walks them (the
+// oracle): cracks between unequal pixels (outside the frame is -1) in
+// corner space [0,w]x[0,h]; vertices where three or more cracks meet and
+// the four frame corners; a segment is the crack chain from a vertex to
+// the next (or around a vertex-free loop).  Vertices in row-major order,
+// directions right, down, left, up; then the loops, vertical cracks first,
+// each from its first unvisited crack in row-major order.  Writes each
+// segment's corner points (x, y) to pts back to back, the end of its points
+// (a running count) to seg_end, its (left, right) regions to sides and its
+// first and last step directions to dirs.  Returns the number of segments,
+// or -1 where pts_cap points or seg_cap segments do not suffice.
+int64_t trace_segments(const int32_t* lab, int32_t h, int32_t w,
+                       int32_t* pts, int64_t pts_cap, int64_t* seg_end,
+                       int32_t* sides, int32_t* dirs, int64_t seg_cap) {
+  const int64_t wp = w + 1;
+  auto at = [&](int64_t y, int64_t x) -> int32_t {
+    return (y >= 0 && y < h && x >= 0 && x < w) ? lab[y * w + x] : -1;
+  };
+  // vert[y * (w + 1) + x]: crack (x, y)-(x, y + 1); horz[y * w + x]:
+  // crack (x, y)-(x + 1, y).
+  std::vector<uint8_t> vert(int64_t(h) * wp), horz(int64_t(h + 1) * w);
+  std::vector<uint8_t> vvis(vert.size(), 0), hvis(horz.size(), 0);
+  std::vector<uint8_t> deg(int64_t(h + 1) * wp, 0);
+  for (int64_t y = 0; y < h; ++y)
+    for (int64_t x = 0; x <= w; ++x) {
+      const uint8_t c = at(y, x - 1) != at(y, x);
+      vert[y * wp + x] = c;
+      deg[y * wp + x] += c;
+      deg[(y + 1) * wp + x] += c;
+    }
+  for (int64_t y = 0; y <= h; ++y)
+    for (int64_t x = 0; x < w; ++x) {
+      const uint8_t c = at(y - 1, x) != at(y, x);
+      horz[y * w + x] = c;
+      deg[y * wp + x] += c;
+      deg[y * wp + x + 1] += c;
+    }
+  auto junction = [&](int64_t cx, int64_t cy) {
+    return deg[cy * wp + cx] >= 3 || ((cx == 0 || cx == w) &&
+                                      (cy == 0 || cy == h));
+  };
+  // The crack leaving corner (cx, cy) in direction d: its flag and its
+  // visited mark, or null where the frame has no such crack.
+  auto crack = [&](int64_t cx, int64_t cy, int d, bool vis) -> uint8_t* {
+    switch (d) {
+      case 0:
+        if (cy <= h && cx < w) return &(vis ? hvis : horz)[cy * w + cx];
+        return nullptr;
+      case 1:
+        if (cx <= w && cy < h) return &(vis ? vvis : vert)[cy * wp + cx];
+        return nullptr;
+      case 2:
+        if (cy <= h && cx > 0) return &(vis ? hvis : horz)[cy * w + cx - 1];
+        return nullptr;
+      default:
+        if (cx <= w && cy > 0) return &(vis ? vvis : vert)[(cy - 1) * wp + cx];
+        return nullptr;
+    }
+  };
+  auto step_exists = [&](int64_t cx, int64_t cy, int d) {
+    const uint8_t* c = crack(cx, cy, d, false);
+    return c != nullptr && *c;
+  };
+  static const int kDx[4] = {1, 0, -1, 0}, kDy[4] = {0, 1, 0, -1};
+  int64_t n_seg = 0, n_pts = 0;
+  bool full = false;
+  auto walk = [&](int64_t cx, int64_t cy, int d) {
+    if (full) return;
+    if (n_seg >= seg_cap) {
+      full = true;
+      return;
+    }
+    int32_t left, right;
+    switch (d) {
+      case 0: left = at(cy - 1, cx); right = at(cy, cx); break;
+      case 1: left = at(cy, cx); right = at(cy, cx - 1); break;
+      case 2: left = at(cy, cx - 1); right = at(cy - 1, cx - 1); break;
+      default: left = at(cy - 1, cx - 1); right = at(cy - 1, cx); break;
+    }
+    const int64_t sx = cx, sy = cy;
+    const int first = d;
+    auto put = [&](int64_t x, int64_t y) {
+      if (n_pts >= pts_cap) {
+        full = true;
+        return;
+      }
+      pts[2 * n_pts] = int32_t(x);
+      pts[2 * n_pts + 1] = int32_t(y);
+      ++n_pts;
+    };
+    put(cx, cy);
+    while (!full) {
+      *crack(cx, cy, d, true) = 1;
+      cx += kDx[d];
+      cy += kDy[d];
+      put(cx, cy);
+      if (junction(cx, cy) || (cx == sx && cy == sy)) break;
+      const int back = (d + 2) % 4;
+      int nxt = -1;
+      for (int d2 = 0; d2 < 4; ++d2)
+        if (d2 != back && step_exists(cx, cy, d2)) {
+          nxt = d2;
+          break;
+        }
+      if (nxt < 0) break;
+      d = nxt;
+    }
+    if (full) return;
+    seg_end[n_seg] = n_pts;
+    sides[2 * n_seg] = left;
+    sides[2 * n_seg + 1] = right;
+    dirs[2 * n_seg] = first;
+    dirs[2 * n_seg + 1] = d;
+    ++n_seg;
+  };
+  for (int64_t cy = 0; cy <= h; ++cy)
+    for (int64_t cx = 0; cx <= w; ++cx) {
+      if (!junction(cx, cy)) continue;
+      for (int d = 0; d < 4; ++d)
+        if (step_exists(cx, cy, d) && !*crack(cx, cy, d, true))
+          walk(cx, cy, d);
+    }
+  // Vertex-free loops, from a snapshot of the unvisited cracks (as the
+  // Python body's np.nonzero) re-checked when reached.
+  std::vector<int64_t> todo;
+  for (int64_t i = 0; i < int64_t(vert.size()); ++i)
+    if (vert[i] && !vvis[i]) todo.push_back(i);
+  for (int64_t i : todo)
+    if (!vvis[i]) walk(i % wp, i / wp, 1);
+  todo.clear();
+  for (int64_t i = 0; i < int64_t(horz.size()); ++i)
+    if (horz[i] && !hvis[i]) todo.push_back(i);
+  for (int64_t i : todo)
+    if (!hvis[i]) walk(i % w, i / w, 0);
+  return full ? -1 : n_seg;
 }
 
 }  // extern "C"

@@ -88,8 +88,29 @@ def trace_segments(label_img: np.ndarray):
     """All boundary segments of a label image.
 
     Returns a list of dicts: points (K,2) int32 corner (x,y) chains
-    (including endpoints), left, right region ids (-1 = outside).
+    (including endpoints), left, right region ids (-1 = outside), first
+    and last step direction (indices into _DIRS).  The native tracer
+    (`native.trace_segments`) walks them where it is built and the labels
+    fit in int32; `_trace_segments_py` (the oracle) elsewhere: the same
+    segments in the same order.
     """
+    from video_segment_tpu_torch import native
+    if label_img.size and (int(label_img.min()) >= -2 ** 31
+                           and int(label_img.max()) < 2 ** 31):
+        out = native.trace_segments(label_img)
+        if out is not None:
+            pts, ends, sides, dirs = out
+            starts = [0] + ends[:-1].tolist()
+            return [dict(points=pts[a:b], left=lt, right=rt, first=f,
+                         last=la)
+                    for a, b, (lt, rt), (f, la) in zip(
+                        starts, ends.tolist(), sides.tolist(),
+                        dirs.tolist())]
+    return _trace_segments_py(label_img)
+
+
+def _trace_segments_py(label_img: np.ndarray):
+    """`trace_segments` in Python: the oracle of the native tracer."""
     vert, horz = _cracks(label_img)
     deg = _corner_degree(vert, horz)
     vvis = np.zeros_like(vert)
@@ -132,6 +153,7 @@ def trace_segments(label_img: np.ndarray):
         left, right = _sides(label_img, cx, cy, d)
         pts = [(cx, cy)]
         sx, sy = cx, cy
+        first = d
         while True:
             mark(cx, cy, d)
             cx, cy = advance(cx, cy, d)
@@ -150,7 +172,7 @@ def trace_segments(label_img: np.ndarray):
                 break  # dead end: cannot happen on closed crack graphs
             d = nxt
         segments.append(dict(points=np.asarray(pts, np.int32),
-                             left=left, right=right))
+                             left=left, right=right, first=first, last=d))
 
     # Segments between junctions.
     jys, jxs = np.nonzero(junction)
@@ -187,15 +209,16 @@ def _assemble(region_segments):
     """Order a region's oriented segments into closed rings.
 
     region_segments: list of (pts (K,2), first_dir, last_dir, ...) oriented
-    so the region is on the LEFT.  Returns list of rings (each a list of
-    indices into region_segments, in traversal order).
+    so the region is on the LEFT, directions as indices into _DIRS.
+    Returns list of rings (each a list of indices into region_segments, in
+    traversal order).
     At degree-4 corners a region can own two incoming and two outgoing
     segments; the sharpest-left-turn rule (planar face traversal) picks the
     continuation that keeps the region interior on the left.
     """
     by_start: dict[tuple, list] = {}
     for i, seg in enumerate(region_segments):
-        by_start.setdefault(tuple(seg[0][0]), []).append(i)
+        by_start.setdefault(tuple(seg[0][0].tolist()), []).append(i)
     used = [False] * len(region_segments)
     rings = []
     for i0 in range(len(region_segments)):
@@ -207,7 +230,7 @@ def _assemble(region_segments):
             used[i] = True
             pts, fd, ld = region_segments[i][:3]
             ring.append(i)
-            key = tuple(pts[-1])
+            key = tuple(pts[-1].tolist())
             cands = [j for j in by_start.get(key, []) if not used[j]]
             if not cands:
                 break
@@ -216,9 +239,9 @@ def _assemble(region_segments):
                 continue
             # Sharpest left turn relative to the incoming direction.
             def turn(j):
-                fd2 = region_segments[j][1]
-                # angle of fd2 measured CCW (math sense, y down) from ld
-                return (_DIRS.index(ld) - _DIRS.index(fd2)) % 4
+                # angle of j's first direction measured CCW (math sense,
+                # y down) from ld
+                return (ld - region_segments[j][1]) % 4
             i = min(cands, key=turn)
         rings.append(ring)
     return rings
@@ -226,7 +249,7 @@ def _assemble(region_segments):
 
 def compute_vectorization(label_img: np.ndarray, region_ids=None,
                           interval_counts=None, ys=None, lxs=None, rxs=None,
-                          max_error: float = MAX_POLY_ERROR):
+                          max_error: float = MAX_POLY_ERROR, trace=None):
     """Vectorize all regions of one frame with jointly traced boundaries.
 
     Signature-compatible with the previous per-region tracer (the RLE
@@ -234,42 +257,64 @@ def compute_vectorization(label_img: np.ndarray, region_ids=None,
     (mesh_coords float32 (2M,), {region_id: [(coord_idx_array, hole)]}) in
     CORNER coordinates [0,W]x[0,H] (boundary.h:41-43), indices referencing
     x positions in the flat mesh.
+
+    Every segment is drawn once, as one polyline that both of its regions
+    walk (in opposite directions), so the rings partition the frame: each
+    pixel centre lies in exactly one region's rings, and the rings'
+    shoelace areas sum to W x H.  A ring that degenerates after
+    simplification (a 1-px-wide straight region: its two side segments
+    each simplify to the same 2-point diagonal, so the ring has < 3
+    points and would vanish) is rebuilt from its crack points, and every
+    segment of that ring keeps its crack points in the neighbours' rings
+    too.  `trace` (a `runtime.trace.Trace`, or None) counts the rings
+    emitted (`encode.rings`) and those rebuilt from crack points
+    (`encode.ring_fallbacks`).
     """
     segments = trace_segments(label_img)
     simplified = [_simplify(s["points"], max_error) for s in segments]
 
-    # Oriented views per region; each entry carries the UNSIMPLIFIED
-    # points too so degenerate rings can fall back to them (a 1-px-wide
-    # straight region's two side segments each simplify to a 2-point
-    # diagonal within max_error — the assembled ring then has < 3 points
-    # and would vanish, breaking the raster-free upscale contract).
+    # Oriented views per region: (simplified points, first and last
+    # directions, segment index, reversed).  First/last directions are the
+    # UNSIMPLIFIED crack steps: simplified segments can enter/leave
+    # junctions diagonally, and a snapped direction mis-ranks the
+    # sharpest-left-turn rule at degree-4 corners — rings then fail to
+    # close (degenerate collinear polygons in raster-free streams).
+    # Walked backwards, a segment starts opposite its last step and ends
+    # opposite its first.
     per_region: dict[int, list] = {}
-    for s, sp in zip(segments, simplified):
-        p = sp
+    for k, (s, p) in enumerate(zip(segments, simplified)):
         if len(p) < 2:
             continue
-        orig = s["points"]
-        # First/last directions come from the UNSIMPLIFIED crack points:
-        # simplified segments can enter/leave junctions diagonally, and a
-        # snapped direction mis-ranks the sharpest-left-turn rule at
-        # degree-4 corners — rings then fail to close (degenerate
-        # collinear polygons in raster-free streams).
-        fdir = _dir_of(orig[0], orig[1])
-        ldir = _dir_of(orig[-2], orig[-1])
+        fdir, ldir = s["first"], s["last"]
         if s["left"] >= 0:
             per_region.setdefault(s["left"], []).append(
-                (p, fdir, ldir, orig))
+                (p, fdir, ldir, k, False))
         if s["right"] >= 0:
-            orr = orig[::-1]
             per_region.setdefault(s["right"], []).append(
-                (p[::-1], _dir_of(orr[0], orr[1]),
-                 _dir_of(orr[-2], orr[-1]), orr))
+                (p[::-1], (ldir + 2) % 4, (fdir + 2) % 4, k, True))
+
+    # Rings per region; segments of a degenerate ring keep their crack
+    # points in every ring that walks them.
+    rings = {rid: _assemble(rsegs) for rid, rsegs in per_region.items()}
+    cracked: set[int] = set()
+    fallbacks = 0
+    for rid, rsegs in per_region.items():
+        for ring in rings[rid]:
+            if sum(len(rsegs[i][0]) - 1 for i in ring) < 3:
+                cracked.update(rsegs[i][3] for i in ring)
+                fallbacks += 1
+
+    def points(seg):
+        pts, _, _, k, rev = seg
+        if k not in cracked:
+            return pts
+        orig = segments[k]["points"]
+        return orig[::-1] if rev else orig
 
     vertex_pool: dict[tuple, int] = {}
     coords: list[float] = []
 
-    def vid(pt):
-        key = (int(pt[0]), int(pt[1]))
+    def vid(key):
         idx = vertex_pool.get(key)
         if idx is None:
             idx = len(coords)
@@ -278,41 +323,30 @@ def compute_vectorization(label_img: np.ndarray, region_ids=None,
         return idx
 
     polys: dict[int, list] = {}
+    n_rings = 0
     for rid, rsegs in per_region.items():
-        rings = _assemble(rsegs)
         plist = []
-        for ring in rings:
-            pts = np.concatenate([rsegs[i][0][:-1] for i in ring], axis=0)
-            if len(pts) < 3:
-                # Degenerate after simplification (thin straight region):
-                # rebuild the ring from the unsimplified crack points so
-                # the region keeps valid geometry.
-                pts = np.concatenate([rsegs[i][3][:-1] for i in ring],
-                                     axis=0)
+        for ring in rings[rid]:
+            pts = np.concatenate([points(rsegs[i])[:-1] for i in ring],
+                                 axis=0)
             if len(pts) < 3:
                 continue
             # Shoelace in y-down coords; region-on-left traversal makes
-            # outer rings clockwise in y-down (negative math area).
+            # OUTER rings come out with negative shoelace area; holes
+            # positive.
             x = pts[:, 0].astype(np.float64)
             y = pts[:, 1].astype(np.float64)
-            area2 = np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y)
-            # Region-on-left traversal in y-down coords makes OUTER rings
-            # come out with negative shoelace area; holes positive.
+            area2 = np.sum(x * np.concatenate((y[1:], y[:1]))
+                           - np.concatenate((x[1:], x[:1])) * y)
             is_hole = area2 > 0
-            plist.append((np.asarray([vid(p) for p in pts], np.int64),
-                          bool(is_hole)))
+            plist.append((np.asarray([vid(p) for p in map(
+                tuple, pts.tolist())], np.int64), bool(is_hole)))
+        n_rings += len(plist)
         polys[int(rid)] = plist
+    if trace is not None:
+        trace.count("encode.rings", n_rings)
+        trace.count("encode.ring_fallbacks", fallbacks)
     return np.asarray(coords, np.float32), polys
-
-
-def _dir_of(a, b):
-    dx = int(np.sign(b[0] - a[0]))
-    dy = int(np.sign(b[1] - a[1]))
-    # Simplified segments can step diagonally; snap to the dominant axis
-    # for the turn rule (only used to disambiguate degree-4 corners).
-    if abs(b[0] - a[0]) >= abs(b[1] - a[1]):
-        return (dx, 0) if dx else (0, dy)
-    return (0, dy) if dy else (dx, 0)
 
 
 def rasterize_polygons(h, w, poly_sets):

@@ -12,12 +12,17 @@ reaches every stage object; `VST_PROFILE=<dir>` records a
 `torch.profiler` trace (CPU and, on a card, CUDA activities) written
 there as a Chrome trace, in which the stages' spans (`runtime/trace.py`)
 are named ranges; and, a profile without a profiler, the run's last lines
-include one with each span's milliseconds a frame (`ingest_preseg`,
-`chunk_solve`, `host_tail` and its parts, `region` and its parts; the
-stages run in threads, so they do not add up to the wall clock) and each
-counter (`region.sets`, `region.regions`, `region.table_bytes`): the
-dense and region stages share one trace.  Solver and region knobs this package does not run yet are refused
-by the stage constructors; the error leaves the CLI as it was raised.
+include one with each span's milliseconds a frame (`flow`, each flow
+micro-batch; `ingest_preseg`, `chunk_solve`, `host_tail` and its parts,
+`region` and its parts; `encode`, each frame's `.pb` encoding, and
+`encode.vectorize` inside it, its label raster and polygons; the stages
+run in threads, so they do not add up to the wall clock) and each counter
+(`flow.pairs`, `region.sets`, `region.regions`, `region.table_bytes`,
+`encode.rings`, `encode.ring_fallbacks`): the flow engine, the dense and
+region stages and the encoder share one trace, which `run(argv)` returns
+beside the exit code to a caller in the same process.  Solver and region
+knobs this package does not run yet are refused by the stage
+constructors; the error leaves the CLI as it was raised.
 """
 
 from __future__ import annotations
@@ -157,6 +162,12 @@ def _region_options_from_flags(pairs):
 
 
 def main(argv=None):
+    return run(argv)[0]
+
+
+def run(argv=None):
+    """Run the command line `argv`; returns (exit code, the run's
+    `runtime.trace.Trace`)."""
     args = build_arg_parser().parse_args(argv)
 
     # Heavy imports after flag parsing (fast --help).
@@ -167,7 +178,10 @@ def main(argv=None):
     from video_segment_tpu_torch.core import dense
     from video_segment_tpu_torch.core.options import DenseSegmentationOptions
     from video_segment_tpu_torch.dataio import emit, seg_io, video
+    from video_segment_tpu_torch.runtime.trace import Trace
     from video_segment_tpu_torch.segment_util import render as render_util
+
+    trace = Trace()
 
     if args.run_on_server:
         args.downscale_min_size = args.downscale_min_size or 360
@@ -197,7 +211,7 @@ def main(argv=None):
                  "both": flow_mod.FLOW_BOTH}[args.flow_type]
         flow_fn = flow_mod.FlowEngine(info.width, info.height,
                                       cache_path=cache, flow_type=ftype,
-                                      device=device)
+                                      device=device, trace=trace)
 
     # Deferred host tail overlaps post-solve host work with the next
     # chunk's device work; checkpointing needs the synchronous tail (saved
@@ -207,7 +221,7 @@ def main(argv=None):
     ds = dense.DenseSegmentation(
         opts, info.width, info.height,
         solver_params=_solver_params_from_flags(args.solver_param),
-        device=device)
+        device=device, trace=trace)
 
     region_stage = None
     save_descriptors = False
@@ -218,7 +232,7 @@ def main(argv=None):
         region_stage = region.RegionSegmentation(ropts,
                                                  info.width, info.height,
                                                  device=device,
-                                                 trace=ds.trace)
+                                                 trace=trace)
 
     resume_from = 0
     if args.resume:
@@ -259,7 +273,7 @@ def main(argv=None):
             ok = writer.open_file(header_flags=[0, 1])
         if not ok:
             print(f"cannot open {out_path}", file=sys.stderr)
-            return 1
+            return 1, trace
 
     # Like the reference (seg_tree.cpp --render_and_save): one video per
     # fractional level 0.1 / 0.4 / 0.75 (a single level-0 video when running
@@ -321,12 +335,13 @@ def main(argv=None):
             from video_segment_tpu_torch.dataio import emit as emit_mod
             current_hierarchy[0] = emit_mod.hierarchy_to_proto(sf.hierarchy)
         if writer is not None:
-            writer.add_to_chunk(
-                emit.segframe_to_bytes(sf, vectorize=vectorize,
-                                       remove_rasterization=strip_raster,
-                                       output_dims=upscale_dims,
-                                       save_descriptors=save_descriptors),
-                pts=reader.pts_of(sf.frame_index))
+            with trace.span("encode"):
+                payload = emit.segframe_to_bytes(
+                    sf, vectorize=vectorize,
+                    remove_rasterization=strip_raster,
+                    output_dims=upscale_dims,
+                    save_descriptors=save_descriptors, trace=trace)
+            writer.add_to_chunk(payload, pts=reader.pts_of(sf.frame_index))
             if sf.hierarchy is not None and n_out > 0:
                 writer.write_chunk()
         if render_writers or display is not None:
@@ -499,10 +514,10 @@ def main(argv=None):
 
     dt = time.time() - t0
     fps = n_out / dt if dt > 0 else 0.0
-    print(ds.trace.summary(n_out))
+    print(trace.summary(n_out))
     print(f"Processed {n_out} frames in {dt:.2f}s ({fps:.2f} fps)")
     print("__SEGMENTATION_FINISHED__")
-    return 0
+    return 0, trace
 
 
 if __name__ == "__main__":
