@@ -4,7 +4,7 @@
 
 Phases (each prints one line; any failure exits non-zero):
  1. environment: torch / CUDA versions, card name, power limit;
- 2. build: the four hand-written kernels from video_segment_tpu_torch/csrc
+ 2. build: the five hand-written kernels from video_segment_tpu_torch/csrc
     (one nvcc each, sm_90a, all started together) and the native host
     helpers (g++); a resource line per kernel (registers, spills, shared
     memory, CTAs per SM from the occupancy API, waves at the main path's
@@ -31,16 +31,25 @@ Phases (each prints one line; any failure exits non-zero):
     fine presegs + 3 K3 levels), RegionSegmentation) over 31 frames,
     launch counts proving K1, K2 and K3 ran;
 11. the flood and supertile dense stages, card vs CPU (boundary F);
-12. TV-L1 flow on the card: ms per 272x480 pair (alone and in a batch of
-    6), card vs CPU, and the panning background's recovered motion;
+12. TV-L1 flow on the card: ms per 272x480 pair, card vs CPU, and the
+    panning background's recovered motion; then K5 (csrc/tvl1.cu) on a
+    batch of 6 pairs: the fields against the eager body on the card, bit
+    for bit, the launches, the kernels' time against their bound (and
+    by limit: the finest scale against its bytes, the coarse scales
+    against a launch floor), the whole batch on the card and as the host
+    issues it, the eager body's time, and TV-L1's peak memory both ways
+    (the resource line of K5's iteration kernel is printed here, after its
+    first launch);
 13. the flow path: segment_frames(use_flow=True, device="cuda") over 31
-    frames, launch counts proving K1 and K2 ran;
+    frames, launch counts proving K1, K2 and K5 ran (K5's: one launch
+    sequence a pair);
 14. the flow dense stage, card vs CPU on the same host flow arrays;
 15. the banded path: segment_frames(use_flow=True, device="cuda") at
     default options over the seeded clip made 480 wide and 854 tall (bench
     config 3's geometry), 31 frames: 2 row bands and 10 pad rows, output
     frames of the true 854 rows, every pixel labelled, launch counts
-    proving K1 ran once per frame and K2 once per band per chunk solve;
+    proving K1 ran once per frame, K2 once per band per chunk solve and
+    K5 once a pair;
 16. the banded dense stage (flow off, 5 frames), card vs CPU (boundary F);
 17. one 480x854 chunk on the card solved in 2 bands and, with
     max_solve_voxels raised, in one band: boundary F between them and the
@@ -51,8 +60,8 @@ Phases (each prints one line; any failure exits non-zero):
     first 21 frames of the clip written to an MJPG .avi, then
     seg_tree.main with --use_pipeline and with --no-use_pipeline: 21
     frames in the .pb, every pixel labelled, a hierarchy on each set start,
-    every stage on the card, exact launch counts (K1 21, K2 2) in both
-    modes; fps of both, the flow stage's seconds and ms per pair through
+    every stage on the card, exact launch counts (K1 21, K2 2, K5 four
+    batches of pairs) in both modes, and under deterministic algorithms; fps of both, the flow stage's seconds and ms per pair through
     push/flush; then both modes again under deterministic algorithms: the
     two .pb files equal;
 20. the same at 480x854 (2 bands), both modes, over 11 frames: K1 11, K2
@@ -179,7 +188,7 @@ C5_W, C5_H = 1080, 1920   # bench config 5
 N_LONG_FRAMES = 140       # 8 chunk solves: a full chunk set, then a seam
 N_SEAM_FRAMES = 40        # phase 31 card vs CPU: 14 solves of 4-frame chunks
 SEAM_H, SEAM_W = 136, 240
-KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table")
+KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table", "tvl1")
 
 # Peak rates of one H100 SXM for the bounds: HBM bytes/s and non-tensor
 # operations/s (float32 and 32-bit integer 67e12, float64 34e12, from the
@@ -586,8 +595,9 @@ def run_cli(main_fn, argv, want_counts=None) -> dict:
     before it and read just after: exit code 0, every stage it built on the
     card, and K1 and K2 launched, or exactly `want_counts` = (K1, K2, K4,
     K3) where given.  Returns its printed text, wall seconds, peak memory,
-    counts and stages."""
-    reset_launches(*kernel_wrappers())
+    counts, K5's launches (`k5`) and stages."""
+    from video_segment_tpu_torch.ops import tvl1 as tvl1_ops
+    reset_launches(*kernel_wrappers(), tvl1_ops.tvl1_scale)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     text = io.StringIO()
@@ -613,7 +623,8 @@ def run_cli(main_fn, argv, want_counts=None) -> dict:
         raise AssertionError(f"{argv}: launches K1/K2/K4/K3 {counts}, want "
                              f"{want_counts}")
     return dict(text=text.getvalue(), wall=wall, counts=counts, made=made,
-                peak=torch.cuda.max_memory_allocated())
+                peak=torch.cuda.max_memory_allocated(),
+                k5=tvl1_ops.tvl1_scale.launches)
 
 
 def cli_fps(run: dict) -> tuple:
@@ -1065,8 +1076,8 @@ def bench_chain(frames, w: int, h: int, out_path: str) -> tuple:
 
 def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
     """Phases 19-23: the command-line tools on the card, in `tmp`.
-    Returns the launch counts (K1, K2, K4, K3 of the supertile run) of
-    seg_tree's pipeline run at 272x480."""
+    Returns the launch counts (K1, K2, K4, K3 of the supertile run, K5)
+    of seg_tree's pipeline run at 272x480."""
     from video_segment_tpu_torch import api, proto
     from video_segment_tpu_torch.dataio import seg_io, video
     from video_segment_tpu_torch.runtime import checkpoint
@@ -1096,15 +1107,23 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
                        want)
 
     # -- 19. seg_tree, 272x480, flow on ------------------------------------
+    from video_segment_tpu_torch.core import flow as fl
     want = (n, n_solves, 0, 0)
     master = staged("master", frames_p)
     n_short = N_SHORT_FRAMES
     want_short = (n_short, expected_chunk_solves(n_short, 20), 0, 0)
+    # K5: one launch sequence a batch of 6 pairs (the flow engine's), the
+    # rest in the flush; the first frame has no flow.
+    want_k5 = -(-(n_short - 1) // 6) * fl.kernel_launches(H, W,
+                                                           fl.TVL1Params())
     short = staged("short", frames_p[:n_short])
     runs = {}
     for mode in ("--use_pipeline", "--no-use_pipeline"):
         path = staged("time" + mode, src=short)
         runs[mode] = seg(path, mode, want=want_short)
+        if runs[mode]["k5"] != want_k5:
+            raise AssertionError(f"seg_tree {mode}: K5 launches "
+                                 f"{runs[mode]['k5']}, want {want_k5}")
         imgs, hier_at = read_pb(path + ".pb")
         if imgs.shape != (n_short, H, W):
             raise AssertionError(f"seg_tree {mode}: .pb holds {imgs.shape}")
@@ -1117,12 +1136,15 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
         log("cli", f"seg_tree {mode} {W}x{H} flow on: "
             f"{seg_tree_summary(runs[mode])}; hierarchies at frames "
             f"{hier_at}; {len(np.unique(imgs[0]))} level-0 regions in "
-            f"frame 0")
+            f"frame 0; K5 launches {runs[mode]['k5']}")
     det = {}
     with deterministic():
         for mode in ("--use_pipeline", "--no-use_pipeline"):
             det[mode] = staged("det" + mode, src=short)
-            seg(det[mode], mode, want=want_short)
+            k5 = seg(det[mode], mode, want=want_short)["k5"]
+            if k5 != want_k5:
+                raise AssertionError(f"seg_tree {mode}, deterministic: K5 "
+                                     f"launches {k5}, want {want_k5}")
     if file_bytes(det["--use_pipeline"] + ".pb") != \
             file_bytes(det["--no-use_pipeline"] + ".pb"):
         raise AssertionError("seg_tree: the pipeline's .pb differs from the "
@@ -1130,8 +1152,10 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
     log("cli", "seg_tree under deterministic algorithms: --use_pipeline and "
         "--no-use_pipeline wrote the same "
         f"{os.path.getsize(det['--use_pipeline'] + '.pb')} bytes; launch "
-        f"counts exact in both ({want_short}, {n_short} frames)")
+        f"counts exact in both ({want_short}, K5 {want_k5}, {n_short} "
+        "frames)")
     cli_counts = list(runs["--use_pipeline"]["counts"])
+    cli_counts.append(runs["--use_pipeline"]["k5"])
 
     # -- 20. seg_tree, 480x854, both modes, 11 frames ----------------------
     n_band = 11
@@ -1913,6 +1937,134 @@ def steady_phase() -> dict:
     return dict(counts=counts)
 
 
+def tvl1_bound(calls) -> tuple:
+    """K5's bound on the scales `calls` (each `tvl1_scale`'s arguments):
+    60 B a pixel an iteration (u1, u2, p11, p12, p21, p22, i1wx, i1wy and
+    rho_c read, the six state planes written) and 36 B a pixel a warp
+    (u1, u2, i0, i1, i1x, i1y read, three invariants written) at the HBM
+    rate; about 20 float32 operations a pixel an iteration.  Returns (ms,
+    what bounds it, pixel-iterations, launches)."""
+    px_it = px_warp = launches = 0
+    for c in calls:
+        p = c[-1]
+        warps, its = max(p.warps, 0), max(p.iterations, 0)
+        px = c[0].numel()
+        px_it += px * warps * its
+        px_warp += px * warps
+        launches += warps * (1 + its)
+    ms, by = bound(60 * px_it + 36 * px_warp, {"f32": 20 * px_it})
+    return ms, by, px_it, launches
+
+
+def tvl1_phase(frames=None, bg_masks=None) -> dict:
+    """Phase 12: TV-L1 on the card (see the module docstring).  Makes a
+    7-frame clip when not given one.  Returns K5's numbers."""
+    from video_segment_tpu_torch.core import flow as fl
+    from video_segment_tpu_torch.ops import tvl1 as tvl1_ops
+    dev = torch.device("cuda", 0)
+    if frames is None:
+        frames, bg_masks = synthetic_clip(7, background=True)
+    grays = torch.from_numpy(np.stack([fl.bgr_to_gray(f)
+                                       for f in frames[:7]])).to(dev)
+    cur, prev = grays[1], grays[0]
+    flow_card = fl.tvl1_flow(cur, prev).cpu().numpy()   # frame 1, backward
+    t0 = time.monotonic()
+    flow_cpu = fl.tvl1_flow(cur.cpu(), prev.cpu()).numpy()
+    cpu_s = time.monotonic() - t0
+    tvl1_ms = cuda_ms(lambda: fl.tvl1_flow(cur, prev), 3)
+    diff = np.abs(flow_card - flow_cpu)
+    n_trunc = int((flow_card.astype(np.int32)
+                   != flow_cpu.astype(np.int32)).sum())
+    bg = bg_masks[0] & bg_masks[1]
+    med_u = float(np.median(flow_card[bg, 0]))
+    med_v = float(np.median(flow_card[bg, 1]))
+    log("flow", f"TV-L1 {W}x{H} pair: {tvl1_ms:.2f} ms alone (CUDA "
+        f"events); CPU {cpu_s:.2f} s; card vs CPU max |d| {diff.max():.3g} "
+        f"px, mean {diff.mean():.3g} px, trunc differs at {n_trunc} pixels;"
+        f" background ({int(bg.sum())} px) median flow ({med_u:.3f}, "
+        f"{med_v:.3f}), built as (+2, 0)")
+    if abs(med_u - 2.0) > 0.3 or abs(med_v) > 0.3:
+        raise AssertionError(f"background flow ({med_u:.3f}, {med_v:.3f}) "
+                             "is not the clip's pan (+2, 0)")
+
+    # K5: the kernel path against the eager body, a batch of six pairs as
+    # the seg_tree flow engine runs it (backward: frame k+1 to frame k).
+    a, b = grays[1:7].contiguous(), grays[:6].contiguous()
+    params = fl.TVL1Params()
+    calls = []   # each scale's kernel arguments, to time the kernels alone
+    real = fl._tvl1_scale_kernel
+
+    def recording(i0, i1, u1, u2, p):
+        calls.append((i0, i1, *fl._grad(i1), u1, u2, p))
+        return tvl1_ops.tvl1_scale(*calls[-1])
+
+    fl._tvl1_scale_kernel = recording
+    try:
+        n0 = tvl1_ops.tvl1_scale.launches
+        got = fl.tvl1_flow_batch(a, b, params)
+        launches = tvl1_ops.tvl1_scale.launches - n0
+    finally:
+        fl._tvl1_scale_kernel = real
+    want = fl.tvl1_flow_plain(a, b, params)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bitwise = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if not bitwise:
+        raise AssertionError(f"K5: the kernel path differs from the eager "
+                             f"body (max |d| {err:.3g} px)")
+    peaks = {}
+    for name, fn in (("kernels", fl.tvl1_flow_batch),
+                     ("eager", fl.tvl1_flow_plain)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn(a, b, params)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+    batch_ms = cuda_ms(lambda: fl.tvl1_flow_batch(a, b, params), 20)
+    batch_dev_ms = device_ms(lambda: fl.tvl1_flow_batch(a, b, params), 20)
+    k5_ms = device_ms(lambda: [tvl1_ops.tvl1_scale(*c) for c in calls], 20)
+    plain_ms = cuda_ms(lambda: fl.tvl1_flow_plain(a, b, params), 3)
+    bound_ms, by, px_it, _ = tvl1_bound(calls)
+    # Two limits bind in turn: the finest scale moves the bytes, the coarse
+    # scales (a few thousand pixels a plane) wait on one launch after
+    # another.  The launch floor is the card's time per back-to-back
+    # launch of an empty kernel.
+    fine_ms = device_ms(lambda: tvl1_ops.tvl1_scale(*calls[-1]), 20)
+    fine_bound_ms, fine_by, _, _ = tvl1_bound(calls[-1:])
+    coarse_ms = device_ms(
+        lambda: [tvl1_ops.tvl1_scale(*c) for c in calls[:-1]], 20)
+    coarse_launches = tvl1_bound(calls[:-1])[3]
+    empty_ms = device_ms(lambda: [torch.cuda._sleep(0) for _ in range(500)],
+                         20) / 500
+    floor_ms = coarse_launches * empty_ms
+    # The iteration kernel's grid at the finest scale: 32x8 tiles, 6 pairs.
+    log("build", resource_line("tvl1", -(-W // 32) * -(-H // tvl1_ops.TILE_H)
+                               * 6))
+    log("flow", f"K5 TV-L1 kernels, a batch of 6 pairs {W}x{H} "
+        f"({len(calls)} scales, {launches} launches, {px_it / 1e6:.2f} M "
+        f"pixel-iterations): fields equal the eager body's bit for bit; "
+        f"kernels alone {k5_ms:.4f} ms (queued back to back), the whole "
+        f"kernel path {batch_dev_ms:.4f} ms on the card and {batch_ms:.4f} "
+        f"ms as the host issues it, the eager body {plain_ms:.2f} ms; bound "
+        f"{bound_ms:.4f} ms ({by}), {100 * bound_ms / k5_ms:.1f}% of it; "
+        f"TV-L1's peak above its inputs {peaks['kernels']:.1f} MiB with the"
+        f" kernels, {peaks['eager']:.1f} MiB eager")
+    log("flow", f"K5 by limit: the finest scale {fine_ms:.4f} ms against "
+        f"its bound {fine_bound_ms:.4f} ms ({fine_by} at the HBM rate), "
+        f"{100 * fine_bound_ms / fine_ms:.1f}% of it; the {len(calls) - 1} "
+        f"coarse scales {coarse_ms:.4f} ms for {coarse_launches} launches "
+        f"against a launch floor of {coarse_launches} x "
+        f"{empty_ms * 1e3:.2f} us (an empty kernel back to back) = "
+        f"{floor_ms:.4f} ms, {100 * floor_ms / coarse_ms:.1f}% of it")
+    return dict(launches=launches, max_abs_err=err, ms=k5_ms,
+                batch_ms=batch_dev_ms, host_ms=batch_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, peak_mib=peaks,
+                fine_ms=fine_ms, fine_bound_ms=fine_bound_ms,
+                coarse_ms=coarse_ms, coarse_launches=coarse_launches,
+                launch_floor_ms=floor_ms)
+
+
 def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
     """Phase 30: bench config 5 on the card (see the module docstring),
     over `n_frames` frames a clip in the timed pass.  Returns its launch
@@ -2502,50 +2654,34 @@ def main() -> int:
 
     # -- 12. TV-L1 on the card ----------------------------------------------
     from video_segment_tpu_torch.core import flow as fl
-    grays = torch.from_numpy(np.stack([fl.bgr_to_gray(f)
-                                       for f in frames[:7]])).to(dev)
-    cur, prev = grays[1], grays[0]
-    flow_card = fl.tvl1_flow(cur, prev).cpu().numpy()   # frame 1, backward
-    t0 = time.monotonic()
-    flow_cpu = fl.tvl1_flow(cur.cpu(), prev.cpu()).numpy()
-    cpu_s = time.monotonic() - t0
-    tvl1_ms = cuda_ms(lambda: fl.tvl1_flow(cur, prev), 3)
-    tvl1_b6_ms = cuda_ms(lambda: fl.tvl1_flow_batch(grays[1:7], grays[:6]),
-                         2) / 6
-    diff = np.abs(flow_card - flow_cpu)
-    n_trunc = int((flow_card.astype(np.int32)
-                   != flow_cpu.astype(np.int32)).sum())
-    bg = bg_masks[0] & bg_masks[1]
-    med_u = float(np.median(flow_card[bg, 0]))
-    med_v = float(np.median(flow_card[bg, 1]))
-    log("flow", f"TV-L1 {W}x{H} pair: {tvl1_ms:.2f} ms alone, "
-        f"{tvl1_b6_ms:.2f} ms per pair in a batch of 6 (CUDA events); CPU "
-        f"{cpu_s:.2f} s; card vs CPU max |d| {diff.max():.3g} px, mean "
-        f"{diff.mean():.3g} px, trunc differs at {n_trunc} pixels; "
-        f"background ({int(bg.sum())} px) median flow ({med_u:.3f}, "
-        f"{med_v:.3f}), built as (+2, 0)")
-    if abs(med_u - 2.0) > 0.3 or abs(med_v) > 0.3:
-        raise AssertionError(f"background flow ({med_u:.3f}, {med_v:.3f}) "
-                             "is not the clip's pan (+2, 0)")
-    del grays
+    from video_segment_tpu_torch.ops import tvl1 as tvl1_ops
+    k5 = tvl1_phase(frames, bg_masks)
 
     # -- 13. flow path ------------------------------------------------------
+    # The API stream computes each frame's backward flow alone: one K5
+    # launch sequence a pair, the first frame none.
     reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min,
-                   tp.tile_presegment, tt.tile_table_rounds)
+                   tp.tile_presegment, tt.tile_table_rounds,
+                   tvl1_ops.tvl1_scale)
     stream = api.segment_frames(iter(frames_p), W, H, use_flow=True,
                                 device="cuda")
     out, wall, peak = run_stream(stream, dev)
     counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
               tp.tile_presegment.launches, tt.tile_table_rounds.launches)
+    k5_flow = tvl1_ops.tvl1_scale.launches
     sets = check_stream(out, stream, N_PATH_FRAMES)
     want = (N_PATH_FRAMES, n_solves_p, 0, 0)
     if counts != want:
         raise AssertionError(f"flow path launches K1/K2/K4/K3 {counts}, "
                              f"want {want}")
+    want_k5 = (N_PATH_FRAMES - 1) * fl.kernel_launches(H, W, fl.TVL1Params())
+    if k5_flow != want_k5:
+        raise AssertionError(f"flow path launches K5 {k5_flow}, want "
+                             f"{want_k5}")
     if "flow" not in stream.stage_seconds:
         raise AssertionError("the flow path ran no flow engine")
     log("flowpath", path_summary(out, stream, wall, peak, sets)
-        + f"; launches K1 {counts[0]} K2 {counts[1]}")
+        + f"; launches K1 {counts[0]} K2 {counts[1]} K5 {k5_flow}")
 
     # -- 14. flow dense stage, card vs CPU ----------------------------------
     t0 = time.monotonic()
@@ -2567,7 +2703,8 @@ def main() -> int:
     frames_b = synthetic_clip(N_PATH_FRAMES, seed=1, h=BH, w=BW)
     clip_s = time.monotonic() - t0
     reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min,
-                   tp.tile_presegment, tt.tile_table_rounds)
+                   tp.tile_presegment, tt.tile_table_rounds,
+                   tvl1_ops.tvl1_scale)
     stream = api.segment_frames(iter(frames_b), BW, BH, use_flow=True,
                                 device="cuda")
     geometry = (stream.dense._bands, stream.dense._pad_rows)
@@ -2584,11 +2721,17 @@ def main() -> int:
     if counts != want:
         raise AssertionError(f"banded path launches K1/K2/K4/K3 {counts}, "
                              f"want {want}")
+    k5_banded = tvl1_ops.tvl1_scale.launches
+    want_k5 = (N_PATH_FRAMES - 1) * fl.kernel_launches(BH, BW,
+                                                       fl.TVL1Params())
+    if k5_banded != want_k5:
+        raise AssertionError(f"banded path launches K5 {k5_banded}, want "
+                             f"{want_k5}")
     banded_launches = counts
     log("banded", path_summary(out, stream, wall, peak, sets)
         + f"; 2 bands of {(BH + 10) // 2} rows, 10 pad rows; launches K1 "
         f"{counts[0]} (one per padded frame) K2 {counts[1]} (one per band "
-        f"per chunk solve); clip made in {clip_s:.1f}s")
+        f"per chunk solve) K5 {k5_banded}; clip made in {clip_s:.1f}s")
 
     # -- 16. banded dense stage, card vs CPU --------------------------------
     t0 = time.monotonic()
@@ -2798,6 +2941,20 @@ def main() -> int:
              launches_long=steady_counts[3],
              launches_config4_long=config4 and config4["counts"][3],
              launches_config5=config5 and config5["counts"][3]),
+        dict(name="tvl1_scale", route="cuda",
+             source="video_segment_tpu_torch/csrc/tvl1.cu",
+             replaces="eager torch ops (core/flow.py:_tvl1_scale)",
+             launches=k5["launches"], max_abs_err=k5["max_abs_err"],
+             ms=k5["ms"], batch_ms=k5["batch_ms"], host_ms=k5["host_ms"],
+             plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+             bound_by=k5["bound_by"], peak_mib=k5["peak_mib"],
+             fine_ms=k5["fine_ms"], fine_bound_ms=k5["fine_bound_ms"],
+             coarse_ms=k5["coarse_ms"],
+             coarse_launches=k5["coarse_launches"],
+             launch_floor_ms=k5["launch_floor_ms"],
+             library_ms=None, launches_flow=k5_flow,
+             launches_banded=k5_banded,
+             launches_seg_tree=cli_counts and cli_counts[4]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

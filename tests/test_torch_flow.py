@@ -9,6 +9,11 @@
   are identical, and each package's reader reads the other's file.
 - `FlowEngine`: push/flush micro-batching equals per-frame `compute` for
   BACKWARD, FORWARD and BOTH; cache reuse; one f16 download per batch.
+- The CUDA kernels (`ops/tvl1.py`): a CPU tensor takes the eager body and
+  never loads the library; the engine counts `flow.kernel_pairs`.  On a
+  card the kernel path equals the eager body (`tvl1_flow_plain` on the
+  same CUDA tensors) bit for bit, and the wrapper raises on what it does
+  not take.
 """
 
 import numpy as np
@@ -17,7 +22,10 @@ import pytest
 import torch
 
 from video_segment_tpu.core import flow as jflow
+from video_segment_tpu_torch import _build
 from video_segment_tpu_torch.core import flow as tflow
+from video_segment_tpu_torch.ops import tvl1 as tvl1_ops
+from video_segment_tpu_torch.runtime.trace import Trace
 
 torch.set_num_threads(2)
 
@@ -243,3 +251,199 @@ def test_tvl1_card_matches_cpu():
               if (fl := eng.compute(f, i)) is not None]
     assert all(f.device().is_cuda for f in fields)
     assert fields[0].numpy().dtype == np.float32
+
+
+def _pairs(shape, seed=10):
+    """(B,H,W) float32 i0s and i1s: each pair its own texture and shift."""
+    b, h, w = shape
+    rng = np.random.default_rng(seed)
+    got = [_pair(seed + k, h, w, shift=tuple(rng.uniform(-3, 3, 2)))
+           for k in range(b)]
+    return (torch.from_numpy(np.stack([a for a, _ in got])),
+            torch.from_numpy(np.stack([c for _, c in got])))
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _no_library(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"the {name} library was loaded")
+    monkeypatch.setattr(_build, "load", refuse)
+
+
+def test_tvl1_cpu_takes_eager_body(monkeypatch):
+    """On the CPU `tvl1_flow_batch` is the eager body: equal to
+    `tvl1_flow_plain` bit for bit, no kernel launched, no library built."""
+    _no_library(monkeypatch)
+    monkeypatch.setattr(tvl1_ops.tvl1_scale, "launches", 0)
+    a, b = _pairs((2, 37, 53))
+    params = tflow.TVL1Params(iterations=7, fine_iterations=5)
+    n0 = tvl1_ops.thread_launches()
+    got = tflow.tvl1_flow_batch(a, b, params)
+    assert _bits_equal(got, tflow.tvl1_flow_plain(a, b, params))
+    assert tvl1_ops.tvl1_scale.launches == 0
+    assert tvl1_ops.thread_launches() == n0
+
+
+def test_tvl1_wrapper_validates_before_loading(monkeypatch):
+    """The wrapper refuses a float64, a misshapen, a non-contiguous and a
+    CPU plane before it loads the library."""
+    _no_library(monkeypatch)
+    p = tflow.TVL1Params()
+    ok = [torch.zeros((2, 17, 30)) for _ in range(6)]
+    for k, bad, err in (
+            (0, torch.zeros((2, 17, 30), dtype=torch.float64), TypeError),
+            (4, torch.zeros((2, 17, 31)), ValueError),
+            (5, torch.zeros((2, 30, 17)).transpose(1, 2), ValueError),
+            (1, torch.zeros((2, 17, 30)), ValueError)):
+        planes = list(ok)
+        planes[k] = bad
+        with pytest.raises(err):
+            tvl1_ops.tvl1_scale(*planes, p)
+
+
+@pytest.mark.parametrize("shape,params,want", [
+    ((6, 272, 480), tflow.TVL1Params(), 534),
+    ((1, 37, 53), tflow.TVL1Params(), 165),
+    ((2, 17, 30), tflow.TVL1Params(), 42),
+    ((1, 64, 64), tflow.TVL1Params(nscales=2, warps=2, iterations=7,
+                                   fine_warps=1, fine_iterations=5), 22),
+    ((1, 64, 64), tflow.TVL1Params(warps=-1, iterations=4,
+                                   fine_iterations=-2), 2)],
+    ids=["cell", "ragged", "one_scale", "odd_iterations", "negative"])
+def test_kernel_launches_follow_the_pyramid(shape, params, want):
+    """`kernel_launches` counts what the wrapper would launch over the
+    scales `_tvl1_flow_impl` actually runs (a recording scale on the
+    CPU stands in for the kernels)."""
+    per_scale = []
+
+    def recording(i0, i1, u1, u2, p):
+        per_scale.append(max(p.warps, 0) * (1 + max(p.iterations, 0)))
+        return u1, u2
+
+    tflow._tvl1_flow_impl(*_pairs(shape), params, recording)
+    assert sum(per_scale) == tflow.kernel_launches(*shape[1:], params) \
+        == want
+
+
+@pytest.mark.parametrize("short", [0, 1], ids=["every_launch", "one_short"])
+def test_flow_engine_counts_kernel_pairs_from_launches(monkeypatch, short):
+    """`flow.kernel_pairs` counts a pair only when the wrapper's launches
+    on the engine's thread make up the whole schedule: a stand-in scale
+    that reports its launches as the wrapper does, all of them or one
+    short."""
+    eager = tflow._tvl1_scale
+
+    def scale(i0, i1, u1, u2, p):
+        tvl1_ops._thread.launches = (tvl1_ops.thread_launches()
+                                     + p.warps * (1 + p.iterations) - short)
+        return eager(i0, i1, u1, u2, p)
+
+    monkeypatch.setattr(tflow, "_tvl1_scale", scale)
+    trace = Trace()
+    eng = tflow.FlowEngine(40, 32, params=tflow.TVL1Params(
+        nscales=2, iterations=3, warps=1, fine_warps=1, fine_iterations=3),
+        batch=3, device="cpu", trace=trace)
+    frames = _frames(8, 5)
+    for i, f in enumerate(frames[:4]):
+        eng.push(f, i)
+    eng.flush()
+    eng.compute(frames[4], 4)
+    assert trace.counters == {"flow.pairs": 4,
+                              "flow.kernel_pairs": 0 if short else 4}
+
+
+@pytest.mark.parametrize("mode", ["batched", "compute"])
+def test_flow_engine_counts_kernel_pairs_on_cpu(mode):
+    """Every computed field counts in `flow.pairs`; on the CPU none in
+    `flow.kernel_pairs`."""
+    trace = Trace()
+    eng = tflow.FlowEngine(40, 32, params=tflow.TVL1Params(
+        nscales=1, iterations=3, warps=1, fine_warps=1, fine_iterations=3),
+        batch=3, device="cpu", trace=trace)
+    frames = _frames(8, 5)
+    for i, f in enumerate(frames):
+        if mode == "batched":
+            eng.push(f, i)
+        else:
+            eng.compute(f, i)
+    eng.flush()
+    assert trace.counters == {"flow.pairs": 4, "flow.kernel_pairs": 0}
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 272, 480), (1, 37, 53), (2, 17, 30)],
+                         ids=["cell", "ragged", "one_scale"])
+def test_tvl1_kernels_equal_eager_on_card(shape):
+    """The kernel path against the eager body on the same CUDA tensors,
+    bit for bit: the cell's batch (5 scales), a ragged pair whose pyramid
+    stops after 2 scales, and 2 pairs at the coarsest size (1 scale)."""
+    _need_card()
+    a, b = (t.cuda() for t in _pairs(shape))
+    before = tvl1_ops.tvl1_scale.launches
+    got = tflow.tvl1_flow_batch(a, b)
+    launched = tvl1_ops.tvl1_scale.launches - before
+    want = tflow.tvl1_flow_plain(a, b)
+    torch.cuda.synchronize()
+    assert launched == tflow.kernel_launches(*shape[1:], tflow.TVL1Params())
+    assert _bits_equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [
+    tflow.TVL1Params(nscales=1),
+    tflow.TVL1Params(nscales=2, warps=2, iterations=7, fine_warps=1,
+                     fine_iterations=5),
+    tflow.TVL1Params(tau=0.2, lambda_=0.3, theta=0.25, iterations=0)],
+    ids=["one_scale", "odd_iterations", "no_iterations"])
+def test_tvl1_kernels_honour_params_on_card(params):
+    """Any schedule and any weights: still the eager body bit for bit."""
+    _need_card()
+    a, b = (t.cuda() for t in _pairs((3, 48, 96), seed=20))
+    got = tflow.tvl1_flow_batch(a, b, params)
+    assert _bits_equal(got, tflow.tvl1_flow_plain(a, b, params))
+
+
+@pytest.mark.cuda
+def test_flow_engine_counts_kernel_pairs_on_card():
+    _need_card()
+    trace = Trace()
+    before = tvl1_ops.tvl1_scale.launches
+    eng = tflow.FlowEngine(40, 32, batch=3, trace=trace)
+    for i, f in enumerate(_frames(9, 7)):
+        eng.push(f, i)
+    eng.flush()
+    eng.compute(_frames(9, 1)[0], 7)
+    assert trace.counters["flow.kernel_pairs"] == \
+        trace.counters["flow.pairs"] == 7
+    assert tvl1_ops.tvl1_scale.launches > before
+
+
+@pytest.mark.cuda
+def test_tvl1_wrapper_raises_on_card():
+    """A non-contiguous or a float64 CUDA plane raises; so does a
+    `tvl1_flow_batch` of float64 pairs (the kernel path takes no other
+    type, and nothing falls back to the eager body)."""
+    _need_card()
+    p = tflow.TVL1Params()
+    ok = [torch.zeros((2, 17, 30), device="cuda") for _ in range(6)]
+    for k, bad, err in (
+            (2, torch.zeros((2, 30, 17), device="cuda").transpose(1, 2),
+             ValueError),
+            (3, torch.zeros((2, 17, 30), dtype=torch.float64,
+                            device="cuda"), TypeError)):
+        planes = list(ok)
+        planes[k] = bad
+        with pytest.raises(err):
+            tvl1_ops.tvl1_scale(*planes, p)
+    a, b = _pairs((1, 17, 30))
+    with pytest.raises(TypeError):
+        tflow.tvl1_flow_batch(a.double().cuda(), b.double().cuda())

@@ -75,12 +75,13 @@ def load(name: str) -> ctypes.CDLL:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`.  Wrappers launch from several threads
-    (the pipeline's stage threads, concurrent clips), and `+=` on an
-    attribute is a read and a write that another thread can come between."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add `n` launches to `wrapper.launches`.  Wrappers launch from several
+    threads (the pipeline's stage threads, concurrent clips), and `+=` on
+    an attribute is a read and a write that another thread can come
+    between."""
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
 
 
 RESOURCE_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",

@@ -9,8 +9,11 @@ dual updates on the smoothness term; the finest scale runs its own
 scaled by 255 inside.  Every op carries a leading batch dimension, so
 `tvl1_flow_batch` computes B pairs in the same launches as one.
 
-The JAX `fori_loop` becomes a Python loop of ordinary torch ops (no
-torch.compile, no CUDA graphs).  The `.flow` files are byte-compatible
+On a CUDA tensor each scale's warps and iterations run as hand-written
+kernels (`ops/tvl1.py`, `csrc/tvl1.cu`), one C call a scale, bit for bit
+the eager body; the pyramid, `_grad` and the resizes stay torch ops.  On
+a CPU tensor the JAX `fori_loop` is a Python loop of ordinary torch ops
+(`_tvl1_scale`, the plain version).  The `.flow` files are byte-compatible
 with the JAX package's and the reference's (flow_reader.cpp:239-249).
 This module imports neither jax nor cv2.
 """
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from video_segment_tpu_torch import device as devmod
+from video_segment_tpu_torch.ops import tvl1 as tvl1_ops
 
 
 class TVL1Params(NamedTuple):
@@ -177,16 +181,42 @@ def _tvl1_scale(i0, i1, u1, u2, p: TVL1Params):
     return u1, u2
 
 
-def _tvl1_flow_impl(i0, i1, params: TVL1Params):
-    """(B,H,W) pairs -> (B,H,W,2) flow from i0 to i1."""
+def _tvl1_scale_kernel(i0, i1, u1, u2, p: TVL1Params):
+    """`_tvl1_scale` through the CUDA kernels (raises off a card)."""
+    i1x, i1y = _grad(i1)
+    return tvl1_ops.tvl1_scale(i0, i1, i1x, i1y, u1, u2, p)
+
+
+def _pyramid_scales(h: int, w: int, nscales: int) -> int:
+    """Scales of the pyramid over (h, w): every level keeps min-dim >= 16
+    (see the JAX module)."""
+    n = 1
+    while n < nscales and min(h, w) // 2 >= 16:
+        h, w, n = h // 2, w // 2, n + 1
+    return n
+
+
+def kernel_launches(h: int, w: int, params: TVL1Params) -> int:
+    """K5 launches of one `tvl1_flow_batch` of (h, w) pairs on a card,
+    whatever the batch: a warp launch and one per iteration, per warp, at
+    every scale."""
+    n = _pyramid_scales(h, w, params.nscales)
+    return ((n - 1) * max(params.warps, 0) * (1 + max(params.iterations, 0))
+            + max(params.fine_warps, 0)
+            * (1 + max(params.fine_iterations, 0)))
+
+
+def _tvl1_flow_impl(i0, i1, params: TVL1Params, scale=None):
+    """(B,H,W) pairs -> (B,H,W,2) flow from i0 to i1.  `scale` runs one
+    pyramid scale: by default the eager body on the CPU, else the
+    kernels."""
+    if scale is None:
+        scale = _tvl1_scale if i0.device.type == "cpu" else _tvl1_scale_kernel
     i0 = i0 * 255.0
     i1 = i1 * 255.0
     pyr0 = [i0]
     pyr1 = [i1]
-    for _ in range(params.nscales - 1):
-        # Every level keeps min-dim >= 16 (see the JAX module).
-        if min(pyr0[-1].shape[-2:]) // 2 < 16:
-            break
+    for _ in range(_pyramid_scales(*i0.shape[-2:], params.nscales) - 1):
         pyr0.append(_downsample2(pyr0[-1]))
         pyr1.append(_downsample2(pyr1[-1]))
 
@@ -202,7 +232,7 @@ def _tvl1_flow_impl(i0, i1, params: TVL1Params):
         p = (params._replace(warps=params.fine_warps,
                              iterations=params.fine_iterations)
              if s == 0 else params)
-        u1, u2 = _tvl1_scale(pyr0[s], pyr1[s], u1, u2, p)
+        u1, u2 = scale(pyr0[s], pyr1[s], u1, u2, p)
     return torch.stack([u1, u2], dim=-1)
 
 
@@ -218,6 +248,13 @@ def tvl1_flow_batch(i0s: torch.Tensor, i1s: torch.Tensor,
     """Batched flow over B frame pairs ((B,H,W) -> (B,H,W,2)): the batch
     is a leading dimension of every op, one launch sequence for all."""
     return _tvl1_flow_impl(i0s, i1s, params)
+
+
+def tvl1_flow_plain(i0s: torch.Tensor, i1s: torch.Tensor,
+                    params: TVL1Params = TVL1Params()) -> torch.Tensor:
+    """`tvl1_flow_batch` through the eager body on any device: the plain
+    version the kernels are held to on the card."""
+    return _tvl1_flow_impl(i0s, i1s, params, _tvl1_scale)
 
 
 def bgr_to_gray(frame_bgr_u8: np.ndarray) -> np.ndarray:
@@ -385,7 +422,10 @@ class FlowEngine:
     raises without CUDA, like every entry of the port.  With a `trace`
     (`runtime/trace.py`), each micro-batch is a `flow` span (its launches
     and, when a cache is written, the fields' download, which waits for
-    the device) and counts its computed fields in `flow.pairs`."""
+    the device) and counts its computed fields in `flow.pairs`, and in
+    `flow.kernel_pairs` those whose every K5 launch the kernels made (read
+    from the wrapper's launches on this thread: every one on a card, none
+    on the CPU)."""
 
     def __init__(self, width: int, height: int, cache_path: str | None = None,
                  params: TVL1Params = TVL1Params(), batch: int = 6,
@@ -398,6 +438,7 @@ class FlowEngine:
         self.flow_type = flow_type
         self._pending: list[tuple[int, np.ndarray, torch.Tensor]] = []
         self._prev: torch.Tensor | None = None   # gray of the last frame
+        self._kernel_pairs = 0   # since the last `_count`
         self._reader = None
         self._writer = None
         if cache_path and os.path.exists(cache_path):
@@ -456,9 +497,12 @@ class FlowEngine:
         if self._prev is not None:
             fwd = bwd = None
             if self.flow_type in (FLOW_FORWARD, FLOW_BOTH):
-                fwd = FlowField(dev=tvl1_flow(self._prev, cur, self.params))
+                fwd = FlowField(dev=self._tvl1(self._prev[None],
+                                               cur[None])[0])
             if self.flow_type in (FLOW_BACKWARD, FLOW_BOTH):
-                bwd = FlowField(dev=tvl1_flow(cur, self._prev, self.params))
+                bwd = FlowField(dev=self._tvl1(cur[None],
+                                               self._prev[None])[0])
+            self._count(int(fwd is not None) + int(bwd is not None))
             self._write_cached(fwd, bwd)
             flow = self._wrap(fwd, bwd)
         self._prev = cur
@@ -510,12 +554,10 @@ class FlowEngine:
 
         fwds = bwds = [None] * n
         if self.flow_type in (FLOW_BACKWARD, FLOW_BOTH):
-            bwds = fields(tvl1_flow_batch(curs_a, prevs_a, self.params))
+            bwds = fields(self._tvl1(curs_a, prevs_a))
         if self.flow_type in (FLOW_FORWARD, FLOW_BOTH):
-            fwds = fields(tvl1_flow_batch(prevs_a, curs_a, self.params))
-        if self.trace is not None:
-            self.trace.count("flow.pairs",
-                             n * (2 if self.flow_type == FLOW_BOTH else 1))
+            fwds = fields(self._tvl1(prevs_a, curs_a))
+        self._count(n * (2 if self.flow_type == FLOW_BOTH else 1))
         out = []
         for (idx, frame, _), fw, bw in zip(self._pending, fwds, bwds):
             self._write_cached(fw, bw)
@@ -523,6 +565,22 @@ class FlowEngine:
         self._prev = grays[-1]
         self._pending.clear()
         return out
+
+    def _tvl1(self, i0s, i1s):
+        """`tvl1_flow_batch`, adding its pairs to `_kernel_pairs` when the
+        kernels made every launch of it."""
+        n0 = tvl1_ops.thread_launches()
+        out = tvl1_flow_batch(i0s, i1s, self.params)
+        want = kernel_launches(*i0s.shape[-2:], self.params)
+        if want > 0 and tvl1_ops.thread_launches() - n0 == want:
+            self._kernel_pairs += i0s.shape[0]
+        return out
+
+    def _count(self, pairs: int) -> None:
+        if self.trace is not None:
+            self.trace.count("flow.pairs", pairs)
+            self.trace.count("flow.kernel_pairs", self._kernel_pairs)
+        self._kernel_pairs = 0
 
     def close(self) -> None:
         if self._reader:
