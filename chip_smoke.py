@@ -1,97 +1,114 @@
-"""Smoke run of the PyTorch / CUDA port on one NVIDIA card.
+"""On-card checks of the PyTorch / CUDA port, on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Each phase checks something and prints what it found; any failure exits
+non-zero.  Whole paths are timed by the benchmark (`bench_port/`: fps,
+latency, spans, peak memory of each cell), not here: this script times
+kernels alone (phases 3, 4, 7, 8 and 12, and the kernel lines of 29 and
+30) and phase 17's chunk solve in 2 bands against 1.  Every line starts
+with the seconds since the start, for the script's own time budget.
+
+Phases:
  1. environment: torch / CUDA versions, card name, power limit;
  2. build: the five hand-written kernels from video_segment_tpu_torch/csrc
     (one nvcc each, sm_90a, all started together) and the native host
     helpers (g++); a resource line per kernel (registers, spills, shared
     memory, CTAs per SM from the occupancy API, waves at the main path's
     grid);
- 3. K1 tile_felzenszwalb vs its plain PyTorch version on the card, bit for
-    bit; ms per 272x480 frame on a textured, a clip and a flat frame;
- 4. K2 tile_reduce_min vs its plain PyTorch version on the card, and the
-    time of one library call (scatter_reduce_ "amin" plus a gather) that
-    computes the same minima; K2 again at one band's shape of the banded
-    480x854 path, (13,21,432,480);
+ 3. K1 tile_felzenszwalb equals its plain PyTorch version bit for bit on
+    textured, clip and flat volumes; its time on a textured, a clip and a
+    flat 272x480 frame, and its bound;
+ 4. K2 tile_reduce_min equals its plain version and one library call
+    (scatter_reduce_ "amin" plus a gather) at a chunk's shape, and its
+    plain version at one band's shape of the banded 480x854 path,
+    (13,21,432,480), with the times and bounds; the presmoothed clip's
+    colours in (0, 2^-20), where K1's float64 sums stop being exact;
  5. the main path: segment_frames(use_flow=False, device="cuda") over a
-    seeded 60-frame 272x480 synthetic clip (bench config 2's geometry),
-    with launch counts proving K1 and K2 ran;
- 6. the dense stage on the card vs the same port on the CPU (boundary F);
- 7. K4 tile_presegment vs its plain version on a (21,272,480) chunk: the
-    raw flood's time, bound and share, and the iterations the slowest tile
-    ran before its fixed point;
- 8. K3 tile_table_rounds vs its plain version on quantized random tables
-    and on the first gated level of a real fine-preseg 272x480 chunk, with
-    the time, bound and share of each;
+    seeded 60-frame 272x480 synthetic clip (bench config 2's geometry):
+    frames in order, every pixel labelled, ascending ids, parent links
+    inside the next level, the protocol's chunk solves, K1 once a frame
+    and K2 once a chunk solve;
+ 6. the dense stage on the card against the same port on the CPU
+    (level-0 boundary F);
+ 7. K4 tile_presegment equals its plain version on a (21,272,480) chunk
+    (raw roots and collapsed labels): the raw flood's time, bound and
+    share, and the iterations the slowest tile ran before its fixed point;
+ 8. K3 tile_table_rounds equals its plain version on quantized random
+    tables and on the first gated level of a real fine-preseg 272x480
+    chunk, with the time, bound and share of each;
  9. the flood path: segment_frames with preseg_mode="flood" over 31
-    frames (2 chunk solves), launch counts proving K4 and K2 ran;
+    frames (2 chunk solves): the checks of 5, K4 and K2 once a chunk
+    solve, K1 never;
 10. the supertile path: SegmentStream(DenseSegmentation(solver_params=
-    fine presegs + 3 K3 levels), RegionSegmentation) over 31 frames,
-    launch counts proving K1, K2 and K3 ran;
-11. the flood and supertile dense stages, card vs CPU (boundary F);
-12. TV-L1 flow on the card: ms per 272x480 pair, card vs CPU, and the
-    panning background's recovered motion; then K5 (csrc/tvl1.cu) on a
-    batch of 6 pairs: the fields against the eager body on the card, bit
-    for bit, the launches, the kernels' time against their bound (and
-    by limit: the finest scale against its bytes, the coarse scales
-    against a launch floor), the whole batch on the card and as the host
-    issues it, the eager body's time, and TV-L1's peak memory both ways
-    (the resource line of K5's iteration kernel is printed here, after its
-    first launch);
-13. the flow path: segment_frames(use_flow=True, device="cuda") over 31
-    frames, launch counts proving K1, K2 and K5 ran (K5's: one launch
-    sequence a pair);
+    fine presegs + 3 K3 levels), RegionSegmentation) over 31 frames: the
+    checks of 5, K1, K2 and K3 launches exact;
+11. the flood and supertile dense stages, card vs CPU (boundary F), and
+    the K3 path against the masked rounds on the card;
+12. TV-L1 on the card: card vs CPU on a 272x480 pair, the panning
+    background's motion recovered, the pair's time; then K5
+    (csrc/tvl1.cu) on a batch of 6 pairs: the fields equal the eager
+    body's on the card bit for bit, the launches, the kernels' time
+    against their bound (and by limit: the finest scale against its
+    bytes, the coarse scales against a launch floor), the whole batch on
+    the card and as the host issues it, the eager body's time, and
+    TV-L1's peak memory both ways (the resource line of K5's iteration
+    kernel is printed here, after its first launch);
+13. the flow path: segment_frames(use_flow=True) over 31 frames: the checks
+    of 5, the flow engine ran, K1 and K2 exact, one K5 launch sequence a
+    pair;
 14. the flow dense stage, card vs CPU on the same host flow arrays;
-15. the banded path: segment_frames(use_flow=True, device="cuda") at
-    default options over the seeded clip made 480 wide and 854 tall (bench
-    config 3's geometry), 31 frames: 2 row bands and 10 pad rows, output
-    frames of the true 854 rows, every pixel labelled, launch counts
-    proving K1 ran once per frame, K2 once per band per chunk solve and
-    K5 once a pair;
+15. the banded path: segment_frames(use_flow=True) at default options over
+    the seeded clip drawn 480 wide and 854 tall (bench config 3's
+    geometry), 31 frames: 2 row bands and 10 pad rows, output frames of
+    the true 854 rows, the checks of 5, K1 once a frame, K2 once a band a
+    chunk solve, K5 once a pair;
 16. the banded dense stage (flow off, 5 frames), card vs CPU (boundary F);
 17. one 480x854 chunk on the card solved in 2 bands and, with
-    max_solve_voxels raised, in one band: boundary F between them and the
-    seconds of both;
+    max_solve_voxels raised, in one band: boundary F between them, and
+    the chunk_solve seconds and peak memory of both;
 18. checkpoint kill-and-resume on the card over the 31-frame 272x480 clip
     (dense and region stage, flow off), bitwise against the straight run;
 19. tools/seg_tree on the card, 272x480, flow on (its defaults): the
     first 21 frames of the clip written to an MJPG .avi, then
-    seg_tree.main with --use_pipeline and with --no-use_pipeline: 21
-    frames in the .pb, every pixel labelled, a hierarchy on each set start,
-    every stage on the card, exact launch counts (K1 21, K2 2, K5 four
-    batches of pairs) in both modes, and under deterministic algorithms; fps of both, the flow stage's seconds and ms per pair through
-    push/flush; then both modes again under deterministic algorithms: the
-    two .pb files equal;
-20. the same at 480x854 (2 bands), both modes, over 11 frames: K1 11, K2
-    2;
+    seg_tree.main with --use_pipeline and with --no-use_pipeline: the run
+    finishes with 21 frames, 21 frames in the .pb, every pixel labelled,
+    a hierarchy on each set start, one stage of each kind, every stage on
+    the card, launch counts exact (K1 21, K2 2, K5 four batches of pairs);
+    then both modes again under deterministic algorithms: launches exact,
+    the two .pb files equal;
+20. the same at 480x854 (2 bands and 10 pad rows), both modes, over 11
+    frames: K1 11, K2 2;
 21. seg_tree --no-flow against segment_frames(use_flow=False) over the
-    same decoded 31 frames (level-0 boundary F), and once with --solver_param
-    st_levels=3 --solver_param preseg_pair_merge=1 (K3 launches);
+    same decoded 31 frames (level-0 boundary F), and once with
+    --solver_param st_levels=3 --solver_param preseg_pair_merge=1 (K3
+    launches exact);
 22. kill and resume through the CLI on the card, flow read from the .flow
-    cache, bitwise against the straight cached run;
-23. the offline tools on the .pb just written: converter --mode bitmap_ids
-    round-trips frame 0's id image, renderer and viewer --dump write files;
+    cache: the restored buffer on the card, the appended .pb equal to the
+    straight cached run's;
+23. the offline tools on the .pb just written: converter --mode
+    bitmap_ids round-trips frame 0's id image, renderer and viewer --dump
+    write files;
 24. the fused batch: BatchDenseSegmentation over two different 21-frame
     clips, flow off, async tails, each clip equal to its standalone run
-    with the synchronous tail (K1 42, K2 4);
-    seconds and fps of batch_segment --fused, sequential and
-    --concurrent 2 over the same clips;
-25. the off-default knobs, each a 21-frame 272x480 path with the
-    full hierarchy, flow off, launch counts exact: the variance descriptor
-    and the gradient trait (K1 21, K2 2), the gradient trait with
-    st_levels=3 and fine presegs (K3 0: the masked rounds, as the JAX
-    package's gate), the two-stage solve, the gradient trait at 480x854 (2
-    bands: K2 4), windowed appearance (window 10: tables non-empty); the
-    three dense knobs card vs CPU over 5 frames (boundary F); a windowed
-    kill and resume over 30 frames (bitwise); seg_tree --solver_param
+    with the synchronous tail (K1 42, K2 4); then batch_segment
+    sequential, --fused and --concurrent 2 over the same clips as .avi
+    files: every frame segmented, launches exact;
+25. the off-default knobs, each a 21-frame 272x480 path with the full
+    hierarchy, flow off, launch counts exact: the variance descriptor and
+    the gradient trait (K1 21, K2 2), the gradient trait with st_levels=3
+    and fine presegs (K3 0: the masked rounds, as the JAX package's gate),
+    the two-stage solve, the gradient trait at 480x854 (2 bands: K2 4),
+    windowed appearance (window 10: tables non-empty); the three dense
+    knobs card vs CPU over 5 frames (boundary F); a windowed kill and
+    resume over 30 frames (bitwise); seg_tree --solver_param
     gradient_trait=1 --region_param appearance_window_size=10
     --region_param save_descriptors=1 (one RegionFeatures per region on
     hierarchy frames);
 26. no module of the JAX package (video_segment_tpu) and no jax was
     imported (checked at the end, after phase 31);
-27. the v1 pixel solver (OversegParams(edge_table=False)): SegmentStream
+27. the v1 pixel solver (OversegParams(edge_table=False)): one flood chunk
+    at the default compact table (the overflow it leaves); SegmentStream
     over the 31-frame 272x480 clip, flow off, full hierarchy, with the
     felz presegs at ingest (K1 31, K2 0, K3 0, K4 0) and in flood mode (K4
     once a chunk solve, at the force-merge weight; no other kernel), the
@@ -103,61 +120,53 @@ Phases (each prints one line; any failure exits non-zero):
     cards are then not exercised); a (1,4) mesh of cuda:0 whose
     DenseSegmentation stream over 21 frames of the 272x480 clip equals
     solver_bands=4 id image for id image (K1 21, K2 8 = 4 bands x 2
-    chunk solves); the mesh stream, solver_bands=4 and the 1-band default
-    timed (seconds, fps, peak MiB, launches); sharded_oversegment on a
-    (2,2) mesh of cuda:0 against the single-device banded solve;
-    sharded_presmooth (bilateral); fused_oversegment over 2 clips;
-    dryrun_multichip(4); then a (1,2) mesh of cuda:0 and the CPU, so
-    that every transfer is real: the stream and sharded_chunk_solver raise
-    no device mismatch, return on cuda:0, each band's outputs equal a
-    single-device band phase on that band's device (band 1 on the CPU,
-    the plain K2), the glued labels reach boundary F >= 0.9 against a
-    mesh of cuda:0 alone, and halo_exchange_rows and sharded_presmooth
-    equal the single-device versions;
+    chunk solves); sharded_oversegment on a (2,2) mesh of cuda:0 against
+    the single-device banded solve (K2 4); sharded_presmooth (bilateral)
+    against the filter; fused_oversegment over 2 clips against each
+    clip's solve; dryrun_multichip(4); then a (1,2) mesh of cuda:0 and the
+    CPU, so that every transfer is real: the stream and
+    sharded_chunk_solver raise no device mismatch, return on cuda:0, each
+    band's outputs equal a single-device band phase on that band's device
+    (band 1 on the CPU, the plain K2), the glued labels reach boundary F
+    >= 0.9 against a mesh of cuda:0 alone, and halo_exchange_rows and
+    sharded_presmooth equal the single-device versions;
 29. bench config 4's steady state: the 140-frame clip upscaled to
-    720x1280 as bench.py upscales its clip, through bench.py's threaded
-    stage chain built from the port (flow | dense with async tail |
-    region, queue 10, each SegFrame encoded into a SegmentationWriter, a
-    new container chunk at each chunk set), flow off, after a warm pass
-    over its first 21 frames: 3 bands and 16 pad rows, 8 chunk solves, K1
-    140 and K2 24 exactly, 140 frames in order in the .pb; a full chunk
-    set of chunks 0-5, then the flush set of chunks 4-7 under the first
-    set's overlap constraints, with the seam property at every level;
-    fps, stage seconds, peak memory and where it was reached; per chunk
-    set (host counts taken in the timed pass, no sync added) the
-    over-segmentation regions, rcap, the bytes of one (rcap, 4000) table,
-    whether rcap * 4000 >= 2^31 (where the JAX package stops, R10) and
-    the seconds of agglomerate's table upload (host seconds of the
-    region.upload span, a blocking pageable copy); from the warm
-    pass each solve's seeds per band, glued table and constraint ids; the
-    dense stage in 3 forced bands card vs CPU over 5 frames (boundary F);
-    K1 per padded frame and K2 per band at this geometry against their
+    720x1280 as bench.py upscales its clip, through
+    api.segment_frames(use_flow=False) with the dense stage's async tail,
+    each SegFrame written to a .pb as api.segment_video writes it: 3 bands
+    and 16 pad rows, 8 chunk solves, K1 140 and K2 24 exactly, 140 frames
+    in order in the .pb read back; a full chunk set of chunks 0-5, then
+    the flush set of chunks 4-7 under the first set's overlap constraints,
+    with the seam property at every level; the peak memory and where it
+    was reached; per chunk solve its seeds per band, glued table and
+    constraint ids, per chunk set (host counts, no sync added) the
+    over-segmentation regions, rcap, the bytes of one (rcap, 4000) table
+    and whether rcap * 4000 >= 2^31 (where the JAX package stops, R10);
+    the dense stage in 3 forced bands card vs CPU over 5 frames (boundary
+    F); K1 per padded frame and K2 per band at this geometry against their
     plain versions, with times and bounds;
 30. bench config 5: two 21-frame clips (seeds 0 and 1; the bench runs 40)
     upscaled to 1080x1920; BatchDenseSegmentation over both, each clip
     equal to its standalone run at the halved budget the batch gives it
-    (bands, launch counts exact); then, timed together, batch_segment
-    --fused --no-flow over both clips as MJPG .avi files and the renderer
-    at render level 0.1 on each .pb: launch counts exact, each .pb read
-    back with a hierarchy, each video non-empty; fps, the renderer's
-    seconds and peak memory; K1 and K2 at this geometry as in 29.
+    (bands, launch counts exact); then batch_segment --fused --no-flow
+    over both clips as MJPG .avi files and the renderer at render level
+    0.1 on each .pb: launch counts exact, each .pb read back with a
+    hierarchy, each video non-empty, the peak memory; K1 and K2 at this
+    geometry as in 29;
 31. the region stage's streaming steady state at 272x480: segment_frames
-    with its defaults, flow off, over 140 frames (8 chunk solves): a full
-    chunk set of chunks 0-5, then the flush set of chunks 4-7 under the
-    first set's constraints; frames in order, once each; K1 140, K2 8, K3
-    0, K4 0; the dense buffer within chunk_size + 1 frames; the seam
+    with its defaults, flow off, over 140 frames (8 chunk solves): the
+    checks of 5, K1 140, K2 8, K3 0, K4 0; the dense buffer within
+    chunk_size + 1 frames; a full chunk set of chunks 0-5, then the flush
+    set of chunks 4-7 under the first set's constraints; the seam
     property (overlap regions that shared a level-l id in one set share
     one at level l in the next, at every level) and level-0 ids shared
-    across the seam; fps, stage seconds, peak memory, per set regions and
-    rcap; then the same API at 136x240 in 4-frame chunks over 40 frames
-    (14 solves, 3 seams) on the card and on the CPU: the seam property on
-    both devices, level-0 boundary F >= 0.9, per-level region counts side
-    by side (float order differs on the card, so not compared for
-    equality).
-Phases 19-23, 25's and 27's seg_tree runs, 29 and 30 decode or resize
-with cv2 and write with protobuf; where either is missing one line names
-it and the phases left out.
-Then a JSON line of per-kernel results (time, launches on the main path,
+    across the seam; the peak memory and where it was reached.  The same
+    API across seams on the card against the CPU is the cuda test
+    tests/test_torch_region_continuity.py::test_seams_card_vs_cpu_on_card.
+Phases 19-23, 24's batch_segment runs, 25's and 27's seg_tree runs, 29
+and 30 decode or resize with cv2 and write with protobuf; where either is
+missing one line names it and the phases left out.
+Then a JSON line of per-kernel results (time, launches on each path,
 bound, plain and library times), the card's name and power limit from
 nvidia-smi, and the final {"ok": true, ...} line.
 """
@@ -178,6 +187,9 @@ import warnings
 import numpy as np
 import torch
 
+from bench_port import generator, roofline
+from bench_port.generator import synthetic_clip
+
 H, W = 272, 480
 BH, BW = 854, 480    # the banded path: bench config 3's geometry
 N_FRAMES = 60
@@ -186,19 +198,12 @@ N_SHORT_FRAMES = 21  # seg_tree at 480x854, the deterministic pair: 2 solves
 C4_W, C4_H = 720, 1280    # bench config 4 (bench.py's scale_to)
 C5_W, C5_H = 1080, 1920   # bench config 5
 N_LONG_FRAMES = 140       # 8 chunk solves: a full chunk set, then a seam
-N_SEAM_FRAMES = 40        # phase 31 card vs CPU: 14 solves of 4-frame chunks
-SEAM_H, SEAM_W = 136, 240
 KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table", "tvl1")
-
-# Peak rates of one H100 SXM for the bounds: HBM bytes/s and non-tensor
-# operations/s (float32 and 32-bit integer 67e12, float64 34e12, from the
-# card's data sheet).
-HBM_BYTES_S = 3.35e12
-OPS_S = {"f32": 67e12, "i32": 67e12, "f64": 34e12}
+_START = time.monotonic()
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{time.monotonic() - _START:7.1f}s {phase}] {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -264,58 +269,8 @@ def textured(rng, shape, sigma):
     return ndi.gaussian_filter(vol, (0, sigma, sigma, 0)).astype(np.float32)
 
 
-def synthetic_clip(n: int, seed: int = 0, background: bool = False,
-                   h: int = H, w: int = W):
-    """Moving piecewise-smooth textured shapes over a background texture
-    that pans 2 px left a frame, plus sensor noise: BGR uint8 (h, w)
-    frames.  With `background`, also the (h, w) masks of the pixels that
-    no shape covers."""
-    import scipy.ndimage as ndi
-    rng = np.random.default_rng(seed)
-    H, W = h, w
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-    pan = 2 * n
-    tex = ndi.gaussian_filter(rng.normal(0, 1, (H, W + pan, 3)),
-                              (2.5, 2.5, 0))
-    tex = (20 * tex / tex.std()).astype(np.float32)
-    grad = np.stack([50 + 80 * xx / W, 70 + 60 * yy / H,
-                     150 - 60 * xx / W], -1)
-    shapes = []
-    for _ in range(12):
-        shapes.append(dict(
-            cy=rng.uniform(30, H - 30), cx=rng.uniform(30, W - 30),
-            ry=rng.uniform(12, 50), rx=rng.uniform(15, 80),
-            vy=rng.uniform(-1.5, 1.5), vx=rng.uniform(-3, 3),
-            col=rng.uniform(20, 235, 3), grad=rng.uniform(-40, 40, 3),
-            tex=rng.uniform(0.0, 0.6)))
-    frames, masks = [], []
-    for f in range(n):
-        bg_tex = tex[:, 2 * f:2 * f + W]
-        img = grad + bg_tex
-        bg = np.ones((H, W), bool)
-        for s in shapes:
-            cy, cx = s["cy"] + s["vy"] * f, s["cx"] + s["vx"] * f
-            d = ((yy - cy) / s["ry"]) ** 2 + ((xx - cx) / s["rx"]) ** 2
-            m = d < 1
-            bg &= ~m
-            img[m] = (s["col"] + s["grad"] * d[m, None]
-                      + s["tex"] * bg_tex[::-1][m])
-        img += rng.normal(0, 3, img.shape)
-        frames.append(np.clip(img, 0, 255).astype(np.uint8))
-        masks.append(bg)
-    return (frames, masks) if background else frames
-
-
 def expected_chunk_solves(n_frames: int, chunk_size: int) -> int:
-    """Chunk solves of the dense streaming protocol (2 overlap frames,
-    one constraint frame) for n_frames, flush included."""
-    buf, start, solves = 0, 0, 0
-    for _ in range(n_frames):
-        buf += 1
-        if buf - start >= chunk_size:
-            solves += 1
-            buf, start = 2, 1
-    return solves + (buf > 0)
+    return len(generator.chunk_solves(n_frames, chunk_size))
 
 
 def boundary_f(a: np.ndarray, b: np.ndarray, tol: int = 2) -> float:
@@ -382,11 +337,11 @@ def check_stream(out, stream, n_frames: int) -> list:
 
 
 def bound(nbytes: float, ops: dict) -> tuple:
-    """Least time (ms) the card could take: the larger of the bytes over
-    the HBM rate and the operations over their type's peak rate."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = sum(n / OPS_S[k] for k, n in ops.items()) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(`roofline.least_seconds` in ms, the limit that sets it: "bytes"
+    or "operations")."""
+    ms = 1e3 * roofline.least_seconds(nbytes, ops)
+    by_bytes = 1e3 * roofline.least_seconds(nbytes, {})
+    return ms, "bytes" if ms == by_bytes else "operations"
 
 
 def resource_line(name: str, ctas: int) -> str:
@@ -424,24 +379,21 @@ def reset_launches(*wrappers) -> None:
 
 
 def run_stream(stream, dev) -> tuple:
-    """Drain a SegmentStream on the card: (frames, wall s, peak bytes)."""
+    """Drain a SegmentStream on the card: (frames, peak bytes)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.monotonic()
     out = list(stream)
     torch.cuda.synchronize()
-    return out, time.monotonic() - t0, torch.cuda.max_memory_allocated(dev)
+    return out, torch.cuda.max_memory_allocated(dev)
 
 
-def path_summary(out, stream, wall, peak, sets) -> str:
-    stages = {k: round(v, 3) for k, v in stream.stage_seconds.items()}
+def path_summary(out, stream, peak, sets) -> str:
     rounds = [int(d[:, 1].sum()) for d in stream.solve_diag]
-    return (f"{len(out)} frames {out[0].frame_width}x{out[0].frame_height} "
-            f"in {wall:.2f}s = "
-            f"{len(out) / wall:.3f} fps; stage seconds {stages}; chunk solves "
-            f"{len(stream.solve_diag)} (merge rounds {rounds}; live regions "
-            f"after each level {[d[:, 2].tolist() for d in stream.solve_diag]}"
-            f"); peak device memory {peak / 2**20:.1f} MiB; regions per level "
+    return (f"{len(out)} frames {out[0].frame_width}x{out[0].frame_height}"
+            f"; chunk solves {len(stream.solve_diag)} (merge rounds "
+            f"{rounds}; live regions after each level "
+            f"{[d[:, 2].tolist() for d in stream.solve_diag]}); peak device "
+            f"memory {peak / 2**20:.1f} MiB; regions per level "
             f"{[[len(lv.ids) for lv in sf.hierarchy] for sf in sets]}")
 
 
@@ -507,16 +459,14 @@ def write_avi(path: str, frames, fps: float = 25.0) -> str:
 @contextlib.contextmanager
 def recorded_stages():
     """Every stage object the port's entry points build inside the block,
-    by kind, so that a CLI run can be asked where its stages ran and how
-    long they took.  The flow engine also times its micro-batches (the
-    stages share one stream, so in pipeline mode a batch's seconds include
-    waits for the other stages' queued work), and `made["emit"]` holds the
-    seconds of every `emit.segframe_to_bytes` call (the .pb encoder with
-    its boundary vectorization, host work of the consuming thread)."""
-    from video_segment_tpu_torch import device as devmod
+    by kind, so that a CLI run can be asked where its stages ran."""
     from video_segment_tpu_torch.core import batch, dense, flow, region
-    from video_segment_tpu_torch.dataio import emit
-    made = {"dense": [], "region": [], "flow": [], "batch": [], "emit": []}
+    made = {"dense": [], "region": [], "flow": [], "batch": []}
+    modules = {"dense": (dense, "DenseSegmentation"),
+               "region": (region, "RegionSegmentation"),
+               "flow": (flow, "FlowEngine"),
+               "batch": (batch, "BatchDenseSegmentation")}
+    saved = {kind: getattr(mod, name) for kind, (mod, name) in modules.items()}
 
     def recording(cls, kind):
         class Recorded(cls):
@@ -525,56 +475,13 @@ def recorded_stages():
                 made[kind].append(self)
         return Recorded
 
-    class TimedFlow(recording(flow.FlowEngine, "flow")):
-        drain_seconds = 0.0   # inside the micro-batches, synchronized
-        push_seconds = 0.0    # every push and flush call, drains included
-        pairs = 0
-        batches = 0
-
-        def push(self, frame, idx):
-            t0 = time.monotonic()
-            out = super().push(frame, idx)
-            self.push_seconds += time.monotonic() - t0
-            return out
-
-        def flush(self):
-            t0 = time.monotonic()
-            out = super().flush()
-            self.push_seconds += time.monotonic() - t0
-            return out
-
-        def _drain(self):
-            n = len(self._pending)
-            t0 = time.monotonic()
-            out = super()._drain()
-            devmod.synchronize(self.device)
-            if n:
-                self.drain_seconds += time.monotonic() - t0
-                self.pairs += n
-                self.batches += 1
-            return out
-
-    saved = (dense.DenseSegmentation, region.RegionSegmentation,
-             flow.FlowEngine, batch.BatchDenseSegmentation,
-             emit.segframe_to_bytes)
-
-    def timed_emit(*args, **kw):
-        t0 = time.monotonic()
-        out = saved[4](*args, **kw)
-        made["emit"].append(time.monotonic() - t0)
-        return out
-
-    dense.DenseSegmentation = recording(saved[0], "dense")
-    region.RegionSegmentation = recording(saved[1], "region")
-    flow.FlowEngine = TimedFlow
-    batch.BatchDenseSegmentation = recording(saved[3], "batch")
-    emit.segframe_to_bytes = timed_emit
+    for kind, (mod, name) in modules.items():
+        setattr(mod, name, recording(saved[kind], kind))
     try:
         yield made
     finally:
-        (dense.DenseSegmentation, region.RegionSegmentation,
-         flow.FlowEngine, batch.BatchDenseSegmentation,
-         emit.segframe_to_bytes) = saved
+        for kind, (mod, name) in modules.items():
+            setattr(mod, name, saved[kind])
 
 
 def kernel_wrappers() -> tuple:
@@ -594,18 +501,16 @@ def run_cli(main_fn, argv, want_counts=None) -> dict:
     """One CLI run on the card with the launch counters set to 0 just
     before it and read just after: exit code 0, every stage it built on the
     card, and K1 and K2 launched, or exactly `want_counts` = (K1, K2, K4,
-    K3) where given.  Returns its printed text, wall seconds, peak memory,
-    counts, K5's launches (`k5`) and stages."""
+    K3) where given.  Returns its printed text, peak memory, counts, K5's
+    launches (`k5`) and stages."""
     from video_segment_tpu_torch.ops import tvl1 as tvl1_ops
     reset_launches(*kernel_wrappers(), tvl1_ops.tvl1_scale)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     text = io.StringIO()
-    t0 = time.monotonic()
     with recorded_stages() as made, contextlib.redirect_stdout(text):
         rc = main_fn(argv)
     torch.cuda.synchronize()
-    wall = time.monotonic() - t0
     counts = launch_counts()
     if rc != 0:
         raise AssertionError(f"{argv}: exit code {rc}\n{text.getvalue()}")
@@ -622,18 +527,9 @@ def run_cli(main_fn, argv, want_counts=None) -> dict:
     if want_counts is not None and counts != want_counts:
         raise AssertionError(f"{argv}: launches K1/K2/K4/K3 {counts}, want "
                              f"{want_counts}")
-    return dict(text=text.getvalue(), wall=wall, counts=counts, made=made,
+    return dict(text=text.getvalue(), counts=counts, made=made,
                 peak=torch.cuda.max_memory_allocated(),
                 k5=tvl1_ops.tvl1_scale.launches)
-
-
-def cli_fps(run: dict) -> tuple:
-    """(frames, seconds, fps) of seg_tree's own `Processed ...` line."""
-    m = re.search(r"Processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)",
-                  run["text"])
-    if m is None or "__SEGMENTATION_FINISHED__" not in run["text"]:
-        raise AssertionError(f"seg_tree did not finish:\n{run['text']}")
-    return int(m.group(1)), float(m.group(2)), float(m.group(3))
 
 
 def read_pb(path: str) -> tuple:
@@ -669,26 +565,14 @@ def read_pb(path: str) -> tuple:
 
 
 def seg_tree_summary(run: dict) -> str:
-    n, secs, fps = cli_fps(run)
-    msg = (f"{n} frames in {secs:.2f}s = {fps:.3f} fps by its own clock "
-           f"({run['wall']:.2f}s with set-up); peak device memory "
-           f"{run['peak'] / 2**20:.1f} MiB; launches K1/K2/K4/K3 "
-           f"{run['counts']}")
-    for ds in run["made"]["dense"]:
-        msg += (f"; dense stage seconds "
-                f"{ {k: round(v, 3) for k, v in ds.stage_seconds.items()} }")
-    for rs in run["made"]["region"]:
-        msg += (f"; region "
-                f"{ {k: round(v, 3) for k, v in rs.stage_seconds.items()} }")
-    for fe in run["made"]["flow"]:
-        if fe.pairs:
-            msg += (f"; flow stage {fe.push_seconds:.3f}s in push/flush, of "
-                    f"which {fe.drain_seconds:.3f}s in {fe.batches} "
-                    f"micro-batches for {fe.pairs} pairs = "
-                    f"{1e3 * fe.drain_seconds / fe.pairs:.2f} ms a pair")
-    msg += (f"; .pb encoding {sum(run['made']['emit']):.3f}s in "
-            f"{len(run['made']['emit'])} calls")
-    return msg
+    """seg_tree's run finished (its last marker) over the frames it says;
+    the launch counts and peak memory."""
+    m = re.search(r"Processed (\d+) frames", run["text"])
+    if m is None or "__SEGMENTATION_FINISHED__" not in run["text"]:
+        raise AssertionError(f"seg_tree did not finish:\n{run['text']}")
+    return (f"{m.group(1)} frames; peak device memory "
+            f"{run['peak'] / 2**20:.1f} MiB; launches K1/K2/K4/K3 "
+            f"{run['counts']}")
 
 
 @contextlib.contextmanager
@@ -728,7 +612,8 @@ def size_records():
     of two: (rows, bins) float32 colour histograms) and of its edge list.
     Each record also holds the device's peak allocation after the call
     where the call raised it (None where it did not): where the run's
-    peak memory was reached."""
+    peak memory was reached.  The seed counts sync the host once a
+    solve."""
     from video_segment_tpu_torch.core import agglomeration
     from video_segment_tpu_torch.core import oversegmentation as ov
     from video_segment_tpu_torch.core.dense import DenseSegmentation
@@ -807,11 +692,9 @@ def set_records(cls=None):
     its over-segmentation gids (sorted) and each one's id at every
     hierarchy level, the overlap assignment (`_prev_assign`) it leaves for
     the next set, and `rows`, the (rows, bins) table height of
-    `agglomerate`.  For a stage with a `trace` (the port's), `rows` comes
-    from its `region.regions` counter and `upload` holds the set's table
-    bytes (`region.table_bytes`) and the host seconds of its
-    `region.upload` span: a blocking copy from pageable memory.  On a card
-    also the allocator's peak before and after the set."""
+    `agglomerate`, from the stage's `region.regions` counter where it has
+    a `trace` (the port's).  On a card also the allocator's peak where the
+    set raised it (`peak_mib`, None where it did not)."""
     from video_segment_tpu_torch.core import region
     if cls is None:
         cls = region.RegionSegmentation
@@ -833,25 +716,16 @@ def set_records(cls=None):
         before = torch.cuda.max_memory_allocated(dev) if on_card else None
         trace = getattr(self, "trace", None)
         if trace is not None:
-            secs0, cnt0 = trace.seconds, trace.counters
+            cnt0 = trace.counters.get("region.regions", 0)
         res = saved[0](self, chunks, emit_all)
         r = rec[-1]
-        regions, upload = len(r["gids"]), None
-        if trace is not None:
-            secs, cnt = trace.seconds, trace.counters
-
-            def grew(d, d0, k):
-                return d.get(k, 0) - d0.get(k, 0)
-
-            regions = grew(cnt, cnt0, "region.regions")
-            upload = dict(nbytes=grew(cnt, cnt0, "region.table_bytes"),
-                          host_s=grew(secs, secs0, "region.upload"))
+        regions = len(r["gids"]) if trace is None else \
+            trace.counters.get("region.regions", 0) - cnt0
         r.update(chunks=len(chunks), flush=emit_all,
                  rows=region._next_pow2(regions + 1),
                  bins=self.num_color_bins,
                  prev_assign=[(np.asarray(pg).copy(), np.asarray(pid).copy())
-                              for pg, pid in self._prev_assign],
-                 upload=upload)
+                              for pg, pid in self._prev_assign])
         if on_card:
             after = torch.cuda.max_memory_allocated(dev)
             r["peak_mib"] = after / 2**20 if after > before else None
@@ -902,8 +776,7 @@ def seam_check(sets) -> list:
 
 def set_summary(sets) -> str:
     """One clause per chunk set of `set_records`: chunks, regions, table
-    rows and bytes, the R10 flag, the upload (host seconds of the
-    `region.upload` span) and where the peak rose."""
+    rows and bytes, the R10 flag and where the peak rose."""
     out = []
     for i, r in enumerate(sets):
         nbytes = r["rows"] * r["bins"] * 4
@@ -915,12 +788,6 @@ def set_summary(sets) -> str:
                f"{nbytes} B = {nbytes / 2**30:.2f} GiB, rcap * bins >= 2^31 "
                f"(R10: the JAX package stops) {r['rows'] * r['bins'] >= 2**31}"
                f", {len(r['ids'])} levels")
-        up = r.get("upload")
-        if up is not None and up["host_s"] > 0:
-            msg += (f"; table upload {up['nbytes'] / 2**30:.2f} GiB in "
-                    f"{up['host_s']:.3f} s, host seconds of a blocking "
-                    f"pageable copy (the region.upload span; no CUDA "
-                    f"events), {up['nbytes'] / up['host_s'] / 1e9:.2f} GB/s")
         if r.get("peak_mib") is not None:
             msg += f"; the device's peak rose to {r['peak_mib']:.1f} MiB"
         out.append(msg)
@@ -932,43 +799,6 @@ def seam_summary(seams) -> str:
         f"seam {k}: {s['levels']} levels held, overlap groups per level "
         f"{s['groups']}, level-0 id overlap {100 * s['share0']:.1f}%"
         for k, s in enumerate(seams))
-
-
-def seam_card_vs_cpu(frames, options=None) -> dict:
-    """Phase 31, second part: `segment_frames` (flow off) over `frames`
-    with dense `options` (`chunk_size=4` by default) on the card and on the
-    CPU, each under `set_records`: the seam property on both devices
-    (`seam_check`), level-0 boundary F of the emitted frames, card against
-    CPU, and the per-level region counts of each set side by side (float
-    order differs on the card, F1 and F3: the hierarchies are not
-    compared for equality).  Raises where a check fails."""
-    from video_segment_tpu_torch import api
-    h, w = frames[0].shape[:2]
-    options = options or api.DenseSegmentationOptions(chunk_size=4)
-    res = {}
-    for name in ("cuda", "cpu"):
-        t0 = time.monotonic()
-        with set_records() as sets:
-            stream = api.segment_frames(iter(frames), w, h, use_flow=False,
-                                        dense_options=options, device=name)
-            out = list(stream)
-        if [sf.frame_index for sf in out] != list(range(len(frames))):
-            raise AssertionError(f"{name}: frames missing or out of order")
-        res[name] = dict(
-            img=rasterize(out), sets=sets, seams=seam_check(sets),
-            solves=len(stream.solve_diag), seconds=time.monotonic() - t0,
-            regions=[[len(np.unique(x)) for x in r["ids"]] for r in sets])
-    if res["cuda"]["solves"] != res["cpu"]["solves"] or \
-            len(res["cuda"]["sets"]) != len(res["cpu"]["sets"]):
-        raise AssertionError("card and CPU ran different chunk sets")
-    if len(res["cuda"]["seams"]) < 2:
-        raise AssertionError(f"{len(res['cuda']['seams'])} seams, want 2 or "
-                             f"more")
-    res["f"] = boundary_f(res["cuda"]["img"], res["cpu"]["img"])
-    if res["f"] < 0.9:
-        raise AssertionError(f"seams card vs CPU: level-0 boundary F "
-                             f"{res['f']:.4f} < 0.9")
-    return res
 
 
 def k1_case(vol: torch.Tensor, k1_kw: dict) -> dict:
@@ -1030,50 +860,6 @@ def kernel_summary(k1: dict, k2: dict) -> str:
             f"{100 * k2['bound_ms'] / k2['ms']:.1f}% of it")
 
 
-def bench_chain(frames, w: int, h: int, out_path: str) -> tuple:
-    """bench.py's stage chain (`run_pipeline`, flow off) built from the
-    port's modules: flow | dense (async tail) | region stages in threads
-    of their own, queues of 10, and the consumer encoding each SegFrame
-    (`emit.segframe_to_bytes`, no vectorization) into a SegmentationWriter
-    at `out_path`, a new container chunk at each chunk set.  Returns (frame
-    indices in emission order, regions per level of each chunk set, the
-    dense stage, the region stage)."""
-    from video_segment_tpu_torch import api
-    from video_segment_tpu_torch.core import dense, region
-    from video_segment_tpu_torch.dataio import emit, seg_io
-    from video_segment_tpu_torch.runtime import pipeline as pl
-    ds = dense.DenseSegmentation(api.DenseSegmentationOptions(
-        async_tail=True), w, h, device="cuda")
-    rs = region.RegionSegmentation(api.RegionSegmentationOptions(
-        use_flow=False), w, h, device="cuda")
-
-    def flow_stage(item):
-        idx, frame = item
-        rs.add_frame(idx, frame, None)
-        return [(frame, None)]
-
-    stages = [pl.Stage("flow", flow_stage),
-              pl.Stage("dense", lambda pair: ds.process_frame(False, *pair),
-                       flush=lambda: ds.process_frame(True)),
-              pl.Stage("region", lambda sf: rs.process_frames(False, [sf]),
-                       flush=lambda: rs.process_frames(True, []))]
-    writer = seg_io.SegmentationWriter(out_path)
-    if not writer.open_file(header_flags=[0, 1]):
-        raise AssertionError(f"cannot write {out_path}")
-    order, sets = [], []
-    for sf in pl.Pipeline(stages, queue_size=10).run(enumerate(frames)):
-        if sf.hierarchy is not None:
-            if order:
-                writer.write_chunk()
-            sets.append([len(lv.ids) for lv in sf.hierarchy])
-        writer.add_to_chunk(emit.segframe_to_bytes(sf),
-                            pts=sf.frame_index * 100)
-        order.append(sf.frame_index)
-    writer.write_term_and_close()
-    ds.join()
-    return order, sets, ds, rs
-
-
 def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
     """Phases 19-23: the command-line tools on the card, in `tmp`.
     Returns the launch counts (K1, K2, K4, K3 of the supertile run, K5)
@@ -1119,7 +905,7 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
     short = staged("short", frames_p[:n_short])
     runs = {}
     for mode in ("--use_pipeline", "--no-use_pipeline"):
-        path = staged("time" + mode, src=short)
+        path = staged("run" + mode, src=short)
         runs[mode] = seg(path, mode, want=want_short)
         if runs[mode]["k5"] != want_k5:
             raise AssertionError(f"seg_tree {mode}: K5 launches "
@@ -1127,7 +913,7 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
         imgs, hier_at = read_pb(path + ".pb")
         if imgs.shape != (n_short, H, W):
             raise AssertionError(f"seg_tree {mode}: .pb holds {imgs.shape}")
-        if cli_fps(runs[mode])[0] != n_short:
+        if f"Processed {n_short} frames" not in runs[mode]["text"]:
             raise AssertionError(f"seg_tree {mode}: {runs[mode]['text']}")
         for kind in ("dense", "region", "flow"):
             if len(runs[mode]["made"][kind]) != 1:
@@ -1204,7 +990,6 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
         f"--solver_param preseg_pair_merge=1: {seg_tree_summary(run)}")
 
     # -- 22. kill and resume through the CLI, flow from the cache ----------
-    t0 = time.monotonic()
     ck = ["--no-use_pipeline", "--checkpoint_every", "1"]
     # The cache comes from a run of its own: --save_flow downloads every
     # field as exact float32, which the host consumers are then served in
@@ -1235,7 +1020,7 @@ def cli_phases(tmp, frames_p, frames_b, n_solves, n_st):
     log("cli", f"kill and resume through seg_tree, flow from the .flow "
         f"cache: stopped by --trim_to 25, resumed at frame {m.group(1)} "
         f"(writer offset {offset}), appended .pb equals the straight cached "
-        f"run's {len(want_pb)} bytes ({time.monotonic() - t0:.1f}s)")
+        f"run's {len(want_pb)} bytes")
 
     # -- 23. the offline tools ----------------------------------------------
     import cv2
@@ -1367,11 +1152,8 @@ def fused_phase(tmp, clips, with_cli) -> tuple:
             stats = json.loads(run["text"].strip().splitlines()[-1])
             if stats["frames"] != len(clips) * n:
                 raise AssertionError(f"batch_segment {name}: {stats}")
-            log("fused", f"batch_segment {name}: {stats['frames']} frames "
-                f"in {stats['seconds']}s = {stats['fps']} fps (decode, "
-                f"dense and region stages, .pb encoding "
-                f"{sum(run['made']['emit']):.3f}s; launches K1/K2/K4/K3 "
-                f"{run['counts']})")
+            log("fused", f"batch_segment {name}: {stats['frames']} frames; "
+                f"launches K1/K2/K4/K3 {run['counts']}")
     return counts
 
 
@@ -1427,7 +1209,7 @@ def knobs_phase(tmp, frames_p, frames_b, with_cli) -> dict:
                 seen.append((len(chunk.win_ids),
                              float(chunk.win_cnt.sum())))
             stream.region._accumulate_windows = recording
-        out, wall, peak = run_stream(stream, dev)
+        out, peak = run_stream(stream, dev)
         counts[name] = launch_counts()
         sets = check_stream(out, stream, n)
         if counts[name] != want_c:
@@ -1442,7 +1224,7 @@ def knobs_phase(tmp, frames_p, frames_b, with_cli) -> dict:
                 raise AssertionError(f"windowed tables empty: {seen}")
             extra = (f"; windows per chunk {[k for k, _ in seen]}, samples "
                      f"{[int(c) for _, c in seen]}")
-        log("knobs", f"{name}: {path_summary(out, stream, wall, peak, sets)}"
+        log("knobs", f"{name}: {path_summary(out, stream, peak, sets)}"
             f"; launches K1/K2/K4/K3 {counts[name]}{extra}")
 
     # Dense knobs, card vs CPU (the same port on the same frames).
@@ -1450,11 +1232,9 @@ def knobs_phase(tmp, frames_p, frames_b, with_cli) -> dict:
             ("variance", api.DenseSegmentationOptions(), variance),
             ("gradient", api.DenseSegmentationOptions(), gradient),
             ("two-stage", two_stage, None)):
-        t0 = time.monotonic()
         fm, n_reg, _ = dense_card_vs_cpu(frames_p[:5], options, params)
         log("knobs", f"{name}: 5 frames, one flush chunk, card vs CPU: "
-            f"boundary F {fm:.4f} (regions {n_reg}; "
-            f"{time.monotonic() - t0:.1f}s)")
+            f"boundary F {fm:.4f} (regions {n_reg})")
         if fm < 0.9:
             raise AssertionError(f"{name}: card vs CPU boundary F {fm:.4f} "
                                  "< 0.9")
@@ -1475,7 +1255,6 @@ def knobs_phase(tmp, frames_p, frames_b, with_cli) -> dict:
             res += rs.process_frames(True, ds.process_frame(True))
         return res
 
-    t0 = time.monotonic()
     cut, frames_k = 25, frames_p[:30]
     with deterministic():
         straight = feed(*stages(), frames_k, 0, True)
@@ -1495,7 +1274,7 @@ def knobs_phase(tmp, frames_p, frames_b, with_cli) -> dict:
         f"killed after frame {cut} "
         f"(window {cut // 10} open, checkpoint "
         f"{os.path.getsize(path) / 2**20:.1f} MiB), resumed run equals the "
-        f"straight run bit for bit ({time.monotonic() - t0:.1f}s)")
+        "straight run bit for bit")
 
     if with_cli:
         from video_segment_tpu_torch import proto
@@ -1563,14 +1342,12 @@ def v1_phase(tmp, frames_p, with_cli) -> dict:
     for fr in frames_p[:21]:
         ds._ingest(fr, None)
     prep = ds._prepare_chunk(False)
-    t0 = time.monotonic()
     res = ds._dispatch_solve(prep)
     labels = int(torch.unique(res.label).numel())
     log("v1", f"flood, one 21-frame chunk at compact_divisor 2: phase A "
         f"leaves {int(res.diag[0, 2])} roots for a "
         f"{int(res.diag[1, 0]) - 1}-slot table; {labels} distinct labels, "
-        f"{int((res.size > 0).sum())} live table regions "
-        f"({time.monotonic() - t0:.2f}s)")
+        f"{int((res.size > 0).sum())} live table regions")
     del ds, prep, res
 
     counts = {}
@@ -1591,7 +1368,7 @@ def v1_phase(tmp, frames_p, with_cli) -> dict:
                 api.RegionSegmentationOptions(use_flow=use_flow), W, H,
                 device="cuda"),
             flow.FlowEngine(W, H, device="cuda") if use_flow else None)
-        out, wall, peak = run_stream(stream, dev)
+        out, peak = run_stream(stream, dev)
         counts[name] = launch_counts()
         sets = check_stream(out, stream, nf)
         if counts[name] != want:
@@ -1599,15 +1376,13 @@ def v1_phase(tmp, frames_p, with_cli) -> dict:
                                  f"{counts[name]}, want {want}")
         if any(d[:, 0].max() < 2 for d in stream.solve_diag):
             raise AssertionError(f"v1 {name}: solve diag not filled")
-        log("v1", f"{name}: {path_summary(out, stream, wall, peak, sets)}"
+        log("v1", f"{name}: {path_summary(out, stream, peak, sets)}"
             f"; launches K1/K2/K4/K3 {counts[name]}")
 
-    t0 = time.monotonic()
     fm, n_reg, _ = dense_card_vs_cpu(frames_p[:5],
                                      api.DenseSegmentationOptions(), v1)
     log("v1", f"felz: 5 frames, one flush chunk (t_solve 5), card vs CPU: "
-        f"boundary F {fm:.4f} (regions {n_reg}; "
-        f"{time.monotonic() - t0:.1f}s)")
+        f"boundary F {fm:.4f} (regions {n_reg})")
     if fm < 0.9:
         raise AssertionError(f"v1: card vs CPU boundary F {fm:.4f} < 0.9")
 
@@ -1630,15 +1405,13 @@ def mesh_phase(frames_p) -> dict:
     machine's cards; a (1,4) mesh of cuda:0 whose DenseSegmentation stream
     over 21 frames equals solver_bands=4 id image for id image and
     SegFrame for SegFrame (both under deterministic algorithms, K1 21 and
-    K2 8 launches on the mesh run); timed runs of the mesh stream, of
-    solver_bands=4 and of the 1-band default (order bands4, mesh, 1 band,
-    mesh, bands4: seconds, fps, peak MiB, launches); sharded_oversegment
+    K2 8 launches on the mesh run); sharded_oversegment
     on a (2,2) cuda:0 mesh against the single-device banded solve;
     sharded_presmooth (bilateral, halo 4) on that mesh against the filter
     image by image; fused_oversegment over 2 clips against each clip's
-    solve (the solves under deterministic algorithms); dryrun_multichip(4).
-    Returns {"mesh": (K1, K2, K4, K3) launches of the mesh run, "timed":
-    {run: [...]}}."""
+    solve (the solves under deterministic algorithms); dryrun_multichip(4);
+    `mixed_mesh_check`.  Returns the (K1, K2, K4, K3) launches of the mesh
+    run."""
     from video_segment_tpu_torch import api
     from video_segment_tpu_torch.core import dense
     from video_segment_tpu_torch.core import oversegmentation as ov
@@ -1646,7 +1419,6 @@ def mesh_phase(frames_p) -> dict:
     from video_segment_tpu_torch.parallel import entry
     from video_segment_tpu_torch.parallel import mesh as pmesh
     dev = torch.device("cuda", 0)
-    t_phase = time.monotonic()
     n_cards = torch.cuda.device_count()
     log("mesh", f"make_mesh() over this machine's cards: "
         f"{pmesh.make_mesh()!r}")
@@ -1663,30 +1435,22 @@ def mesh_phase(frames_p) -> dict:
                                          H, mesh=same)
         else:
             ds = dense.DenseSegmentation(api.DenseSegmentationOptions(
-                solver_bands=4 if name == "bands4" else 0), W, H,
-                device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
+                solver_bands=4), W, H, device="cuda")
         reset_launches(*kernel_wrappers())
-        t0 = time.monotonic()
         out = []
         for fr in frames:
             out += ds.process_frame(False, fr)
         out += ds.process_frame(True)
         torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        return out, dict(s=wall, fps=n / wall,
-                         peak_mib=torch.cuda.max_memory_allocated(dev)
-                         / 2 ** 20, launches=launch_counts(),
-                         bands=ds._bands, solves=len(ds.solve_diag))
+        return out, launch_counts()
 
     with deterministic():
-        out_m, run_m = stream("mesh")
-        out_b, run_b = stream("bands4")
+        out_m, launches_m = stream("mesh")
+        out_b, launches_b = stream("bands4")
     want = (n, 4 * expected_chunk_solves(n, 20), 0, 0)
-    if run_m["launches"] != want:
+    if launches_m != want:
         raise AssertionError(f"mesh stream launches K1/K2/K4/K3 "
-                             f"{run_m['launches']}, want {want}")
+                             f"{launches_m}, want {want}")
     ids_m, ids_b = rasterize(out_m), rasterize(out_b)
     if (ids_m < 0).any() or not np.array_equal(ids_m, ids_b) or \
             signature(out_m) != signature(out_b):
@@ -1695,16 +1459,7 @@ def mesh_phase(frames_p) -> dict:
     log("mesh", f"(1,4) mesh of cuda:0, {n} frames {W}x{H}, flow off, "
         f"deterministic algorithms: id images and SegFrames equal "
         f"solver_bands=4's ({len(np.unique(ids_m))} ids); launches "
-        f"K1/K2/K4/K3 mesh {run_m['launches']} bands4 {run_b['launches']}")
-
-    timed = {"bands4": [], "mesh": [], "bands1": []}
-    for name in ("bands4", "mesh", "bands1", "mesh", "bands4"):
-        _, run = stream(name)
-        timed[name].append(run)
-        log("mesh", f"timed {name}: {run['s']:.3f}s = {run['fps']:.3f} fps, "
-            f"peak {run['peak_mib']:.1f} MiB, {run['bands']} band(s), "
-            f"{run['solves']} chunk solves, launches K1/K2/K4/K3 "
-            f"{run['launches']}")
+        f"K1/K2/K4/K3 mesh {launches_m} bands4 {launches_b}")
 
     # sharded_oversegment, sharded_presmooth and fused_oversegment on a
     # (2,2) mesh of cuda:0, on crops of two clip windows.
@@ -1717,10 +1472,7 @@ def mesh_phase(frames_p) -> dict:
     params = ov.OversegParams(min_region_size=20, table_divisor=1)
     with deterministic():
         reset_launches(*kernel_wrappers())
-        t0 = time.monotonic()
         labels = pmesh.sharded_oversegment(m22, params)(vols)
-        torch.cuda.synchronize()
-        t_sh = time.monotonic() - t0
         k2_sh = launch_counts()[1]
         single = [ov.oversegment(v, params=params._replace(bands=2)).label
                   for v in vols]
@@ -1737,14 +1489,11 @@ def mesh_phase(frames_p) -> dict:
     log("mesh", f"sharded_oversegment on a (2,2) mesh of cuda:0, 2 clips "
         f"{tuple(vols.shape[1:4])}: labels equal the single-device "
         f"2-band solve ({int(torch.unique(labels).numel())} labels, K2 "
-        f"{k2_sh}, {t_sh:.2f}s)")
+        f"{k2_sh})")
 
     big = torch.tensor(np.stack([np.stack(frames[:2]), np.stack(frames[2:4])]),
                        device=dev).to(torch.float32) * (1.0 / 255.0)
-    t0 = time.monotonic()
     sm = pmesh.sharded_presmooth(m22, "bilateral", halo=4)(big)
-    torch.cuda.synchronize()
-    t_pre = time.monotonic() - t0
     ref = torch.stack([torch.stack([filters.presmooth(img, "bilateral")
                                     for img in clip]) for clip in big])
     err = float((sm - ref).abs().max())
@@ -1753,17 +1502,15 @@ def mesh_phase(frames_p) -> dict:
                              f"by {err}")
     log("mesh", f"sharded_presmooth (bilateral, halo 4) on the (2,2) mesh, "
         f"{tuple(big.shape)}: equal to the filter image by image bit for "
-        f"bit ({t_pre:.2f}s)")
+        "bit")
 
     log("mesh", f"fused_oversegment over 2 clips {tuple(vols.shape[1:4])}: "
         "each equal to its single-clip solve")
 
-    t0 = time.monotonic()
     entry.dryrun_multichip(4)
-    log("mesh", f"dryrun_multichip(4) passed ({time.monotonic() - t0:.1f}s)")
+    log("mesh", "dryrun_multichip(4) passed")
     mixed_mesh_check(frames)
-    log("mesh", f"phase 28 took {time.monotonic() - t_phase:.1f}s")
-    return {"mesh": run_m["launches"], "timed": timed}
+    return launches_m
 
 
 def long_stream_checks(name: str, sets, n_solves: int) -> list:
@@ -1796,31 +1543,40 @@ def peak_site(sets, peak: int) -> str:
 
 def config4_phase(tmp, k1_kw: dict) -> dict:
     """Phase 29: bench config 4's steady state on the card (see the module
-    docstring).  Returns the timed pass's launch counts and the kernels'
-    cases at this geometry."""
+    docstring), one pass that also takes the size and set records.
+    Returns its launch counts and the kernels' cases at this geometry."""
     from video_segment_tpu_torch import api
     from video_segment_tpu_torch.core import dense
+    from video_segment_tpu_torch.dataio import emit, seg_io
     dev = torch.device("cuda", 0)
-    t_phase = time.monotonic()
     frames = upscale(synthetic_clip(N_LONG_FRAMES, seed=0), C4_W, C4_H)
     n = len(frames)
-    with size_records() as sizes:
-        t0 = time.monotonic()
-        bench_chain(frames[:N_SHORT_FRAMES], C4_W, C4_H,
-                    os.path.join(tmp, "config4_warm.pb"))
-        warm_s = time.monotonic() - t0
-
     pb = os.path.join(tmp, "config4.pb")
+    writer = seg_io.SegmentationWriter(pb)
+    if not writer.open_file(header_flags=[0, 1]):
+        raise AssertionError(f"cannot write {pb}")
     reset_launches(*kernel_wrappers())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.monotonic()
-    with set_records() as sets:
-        order, hier, ds, rs = bench_chain(frames, C4_W, C4_H, pb)
+    order, hier = [], []
+    with size_records() as sizes, set_records() as sets:
+        stream = api.segment_frames(
+            iter(frames), C4_W, C4_H, use_flow=False,
+            dense_options=api.DenseSegmentationOptions(async_tail=True),
+            device="cuda")
+        for sf in stream:       # written as api.segment_video writes
+            if sf.hierarchy is not None:
+                if order:
+                    writer.write_chunk()
+                hier.append([len(lv.ids) for lv in sf.hierarchy])
+            writer.add_to_chunk(emit.segframe_to_bytes(sf),
+                                pts=sf.frame_index * 100)
+            order.append(sf.frame_index)
+        writer.write_term_and_close()
     torch.cuda.synchronize()
-    wall = time.monotonic() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    ds = stream.dense
     n_solves = expected_chunk_solves(n, 20)
     if (ds._bands, ds._pad_rows) != (3, 16):
         raise AssertionError(f"config 4: (bands, pad rows) "
@@ -1830,40 +1586,34 @@ def config4_phase(tmp, k1_kw: dict) -> dict:
                              f"{(n, 3 * n_solves, 0, 0)}")
     if order != list(range(n)):
         raise AssertionError(f"config 4: frames emitted as {order}")
-    seams = long_stream_checks("config 4", sets, n_solves)
+    seams = long_stream_checks("config 4", sets, len(stream.solve_diag))
     imgs, hier_at = read_pb(pb)
     if imgs.shape != (n, C4_H, C4_W) or len(hier_at) != len(sets):
         raise AssertionError(f"config 4: the .pb holds {imgs.shape}, "
                              f"hierarchies at {hier_at}")
     del imgs
-    stages = {k: round(v, 3) for k, v in
-              {**ds.stage_seconds, **rs.stage_seconds}.items()}
     log("config4", f"{n} frames {C4_W}x{C4_H} (the {W}x{H} clip upscaled), "
-        f"flow off, bench.py's stage chain: {wall:.2f}s = {n / wall:.3f} fps "
-        f"(the warm pass over the first {N_SHORT_FRAMES} frames, with the "
-        f"size records, {warm_s:.1f}s); stage seconds (threads, not "
-        f"additive) {stages}; peak device memory {peak / 2**20:.1f} MiB, "
-        f"reached in {peak_site(sets, peak)}; {ds._bands} bands of "
-        f"{(C4_H + ds._pad_rows) // ds._bands} rows, {ds._pad_rows} pad "
-        f"rows; {n_solves} chunk solves; hierarchy regions per level of each "
-        f"chunk set {hier}; .pb read back: {n} frames in order, hierarchies "
-        f"at {hier_at}; launches K1/K2/K4/K3 {counts}")
-    log("config4", "chunk sets (host counts taken in the timed pass, no "
-        "sync added): " + set_summary(sets))
+        f"flow off, segment_frames with the async tail: peak device memory "
+        f"{peak / 2**20:.1f} MiB, reached in {peak_site(sets, peak)}; "
+        f"{ds._bands} bands of {(C4_H + ds._pad_rows) // ds._bands} rows, "
+        f"{ds._pad_rows} pad rows; {n_solves} chunk solves; hierarchy "
+        f"regions per level of each chunk set {hier}; .pb read back: {n} "
+        f"frames in order, hierarchies at {hier_at}; launches K1/K2/K4/K3 "
+        f"{counts}")
+    log("config4", "chunk sets (host counts, no sync added): "
+        + set_summary(sets))
     log("config4", "seam property held: " + seam_summary(seams))
-    log("config4", "the warm pass's sizes: " + size_summary(sizes))
+    log("config4", "sizes: " + size_summary(sizes))
     del sets
 
     forced = dense.DenseSegmentation(api.DenseSegmentationOptions(
         solver_bands=3), C4_W, C4_H, device="cpu")
     if (forced._bands, forced._pad_rows) != (3, 16):
         raise AssertionError("config 4 card vs CPU: not 3 bands, 16 pad rows")
-    t0 = time.monotonic()
     fm, n_reg, _ = dense_card_vs_cpu(frames[:5], api.DenseSegmentationOptions(
         solver_bands=3))
     log("config4", f"card vs CPU: 5 frames, one flush chunk (t_solve 5) in 3 "
-        f"forced bands, 16 pad rows: boundary F {fm:.4f} (regions {n_reg}; "
-        f"{time.monotonic() - t0:.1f}s)")
+        f"forced bands, 16 pad rows: boundary F {fm:.4f} (regions {n_reg})")
     if fm < 0.9:
         raise AssertionError(f"config 4: card vs CPU boundary F {fm:.4f} "
                              "< 0.9")
@@ -1874,7 +1624,6 @@ def config4_phase(tmp, k1_kw: dict) -> dict:
                       torch.Generator(device=dev).manual_seed(29), k1_kw,
                       hp // ds._bands, C4_W)
     log("config4", kernel_summary(k1, k2))
-    log("config4", f"phase 29 took {time.monotonic() - t_phase:.1f}s")
     return dict(counts=counts, k1=k1, k2=k2)
 
 
@@ -1883,7 +1632,6 @@ def steady_phase() -> dict:
     the card (see the module docstring).  Returns the launch counts."""
     from video_segment_tpu_torch import api
     dev = torch.device("cuda", 0)
-    t_phase = time.monotonic()
     frames = synthetic_clip(N_LONG_FRAMES, seed=3)
     reset_launches(*kernel_wrappers())
     with set_records() as sets:
@@ -1900,7 +1648,7 @@ def steady_phase() -> dict:
             return res
 
         ds.process_frame = watched
-        out, wall, peak = run_stream(stream, dev)
+        out, peak = run_stream(stream, dev)
     counts = launch_counts()
     hier = check_stream(out, stream, N_LONG_FRAMES)
     n_solves = len(stream.solve_diag)
@@ -1912,28 +1660,13 @@ def steady_phase() -> dict:
     if bufs[0] > ds.options.chunk_size + 1:
         raise AssertionError(f"steady state: the dense stage buffered "
                              f"{bufs[0]} frames")
-    log("steady", path_summary(out, stream, wall, peak, hier)
+    log("steady", path_summary(out, stream, peak, hier)
         + f"; peak reached in {peak_site(sets, peak)}; largest buffers: "
         f"dense {bufs[0]} frames (chunk_size + 1 = "
         f"{ds.options.chunk_size + 1}), region features {bufs[1]} frames, "
         f"region chunks {bufs[2]}; launches K1/K2/K4/K3 {counts}")
     log("steady", "chunk sets: " + set_summary(sets))
     log("steady", "seam property held: " + seam_summary(seams))
-    del out, sets
-
-    res = seam_card_vs_cpu(synthetic_clip(N_SEAM_FRAMES, seed=3, h=SEAM_H,
-                                          w=SEAM_W))
-    log("steady", f"card vs CPU across seams: {N_SEAM_FRAMES} frames "
-        f"{SEAM_W}x{SEAM_H}, chunk_size 4, flow off: "
-        f"{res['cuda']['solves']} chunk solves, "
-        f"{len(res['cuda']['sets'])} chunk sets on each device; level-0 "
-        f"boundary F {res['f']:.4f}; regions per level of each set, card "
-        f"{res['cuda']['regions']}, CPU {res['cpu']['regions']}; seam "
-        f"property held on the card ({seam_summary(res['cuda']['seams'])}) "
-        f"and on the CPU ({seam_summary(res['cpu']['seams'])}); "
-        f"{res['cuda']['seconds']:.1f}s card, {res['cpu']['seconds']:.1f}s "
-        f"CPU")
-    log("steady", f"phase 31 took {time.monotonic() - t_phase:.1f}s")
     return dict(counts=counts)
 
 
@@ -1963,7 +1696,8 @@ def tvl1_phase(frames=None, bg_masks=None) -> dict:
     from video_segment_tpu_torch.ops import tvl1 as tvl1_ops
     dev = torch.device("cuda", 0)
     if frames is None:
-        frames, bg_masks = synthetic_clip(7, background=True)
+        frames, objects = synthetic_clip(7, truth=True)
+        bg_masks = objects == 0
     grays = torch.from_numpy(np.stack([fl.bgr_to_gray(f)
                                        for f in frames[:7]])).to(dev)
     cur, prev = grays[1], grays[0]
@@ -2067,11 +1801,10 @@ def tvl1_phase(frames=None, bg_masks=None) -> dict:
 
 def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
     """Phase 30: bench config 5 on the card (see the module docstring),
-    over `n_frames` frames a clip in the timed pass.  Returns its launch
-    counts and the kernels' cases at this geometry."""
+    over `n_frames` frames a clip.  Returns its launch counts and the
+    kernels' cases at this geometry."""
     from video_segment_tpu_torch.tools import batch_segment, renderer
     dev = torch.device("cuda", 0)
-    t_phase = time.monotonic()
     clips = [upscale(synthetic_clip(n_frames, seed=seed), C5_W, C5_H)
              for seed in (0, 1)]
     _, bd = fused_vs_standalone([c[:N_SHORT_FRAMES] for c in clips],
@@ -2084,10 +1817,8 @@ def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
     out_dir = os.path.join(tmp, "config5")
     n_solves = expected_chunk_solves(n_frames, 20)
     want = (2 * n_frames, 2 * bands * n_solves, 0, 0)
-    t0 = time.monotonic()
     run = run_cli(batch_segment.main, [*vids, "--fused", "--no-flow",
                                        "--output_dir", out_dir], want)
-    t1 = time.monotonic()
     pbs = [os.path.join(out_dir, f"{i:03d}_{os.path.basename(v)}.pb")
            for i, v in enumerate(vids)]
     mp4s = [pb + "_render.mp4" for pb in pbs]
@@ -2097,17 +1828,11 @@ def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
                                 "--output_video", mp4])
         if rc not in (0, None):
             raise AssertionError(f"renderer failed on {pb}: {rc}")
-    t2 = time.monotonic()
-    stats = json.loads(run["text"].strip().splitlines()[-1])
     batches = run["made"]["batch"]
     if len(batches) != 1 or [c._bands for c in batches[0].clips] != \
             [bands] * 2:
         raise AssertionError(f"config 5: batch_segment's clips are not in "
                              f"{bands} bands")
-    dense_s = [{k: round(v, 3) for k, v in c.stage_seconds.items()}
-               for c in batches[0].clips]
-    region_s = [round(r.stage_seconds["region"], 3)
-                for r in run["made"]["region"]]
     regions = []
     for pb, mp4 in zip(pbs, mp4s):
         imgs, _ = read_pb(pb)
@@ -2118,15 +1843,10 @@ def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
             raise AssertionError(f"config 5: {mp4} is empty")
     log("config5", f"2 clips x {n_frames} frames {C5_W}x{C5_H} (the {W}x{H} "
         f"clip upscaled, seeds 0 and 1), batch_segment --fused --no-flow, "
-        f"then the renderer at render level 0.1 on each .pb: "
-        f"{2 * n_frames} frames in {t2 - t0:.2f}s = "
-        f"{2 * n_frames / (t2 - t0):.3f} fps; batch_segment {t1 - t0:.2f}s "
-        f"({stats['fps']} fps by its own clock; .pb encoding "
-        f"{sum(run['made']['emit']):.3f}s), the renderer {t2 - t1:.2f}s "
-        f"(videos {[os.path.getsize(m) for m in mp4s]} B); peak device memory "
+        f"then the renderer at render level 0.1 on each .pb (videos "
+        f"{[os.path.getsize(m) for m in mp4s]} B): peak device memory "
         f"{run['peak'] / 2**20:.1f} MiB; {bands} bands a clip, {pad} pad "
-        f"rows; dense stage seconds {dense_s}; region {region_s}; launches "
-        f"K1/K2/K4/K3 {run['counts']}; each .pb read back with "
+        f"rows; launches K1/K2/K4/K3 {run['counts']}; each .pb read back with "
         f"{n_frames} frames and a hierarchy, level-0 regions per clip "
         f"{regions}")
 
@@ -2136,7 +1856,6 @@ def config5_phase(tmp, k1_kw: dict, n_frames: int) -> dict:
                       torch.Generator(device=dev).manual_seed(30), k1_kw,
                       (C5_H + pad) // bands, C5_W)
     log("config5", kernel_summary(k1, k2))
-    log("config5", f"phase 30 took {time.monotonic() - t_phase:.1f}s")
     return dict(counts=run["counts"], k1=k1, k2=k2)
 
 
@@ -2165,7 +1884,6 @@ def mixed_mesh_check(frames, options=None) -> None:
     from video_segment_tpu_torch.ops import filters
     from video_segment_tpu_torch.parallel import mesh as pmesh
     dev, cpu = torch.device("cuda", 0), torch.device("cpu")
-    t_check = time.monotonic()
     h, w = frames[0].shape[:2]
     options = options or api.DenseSegmentationOptions()
     mixed = pmesh.Mesh([[dev, cpu]])
@@ -2275,8 +1993,7 @@ def mixed_mesh_check(frames, options=None) -> None:
         f"single-device exchange; sharded_presmooth (bilateral, halo 4) "
         f"equals the filter on each shard's device bit for bit (rows of the "
         f"CPU shard differ from the card's filter by at most "
-        f"{float((sm - ref[dev]).abs().max()):.3g}); "
-        f"{time.monotonic() - t_check:.1f}s")
+        f"{float((sm - ref[dev]).abs().max()):.3g})")
 
 
 def main() -> int:
@@ -2303,7 +2020,6 @@ def main() -> int:
     from video_segment_tpu_torch.ops import tile_table as tt
 
     # -- 2. build -----------------------------------------------------------
-    t0 = time.monotonic()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(_build.load, KERNELS))
     tiles = -(-H // tf.TILE_H) * -(-W // tf.TILE_W)
@@ -2312,11 +2028,9 @@ def main() -> int:
     log("build", resource_line("tile_preseg",               # one chunk
                                -(-21 * tiles // tp.TILES_PER_CTA)))
     from video_segment_tpu_torch.core import region
-    t1 = time.monotonic()
     if not region.native.available():
         raise RuntimeError("native host helpers (g++) failed to build")
-    log("build", f"kernels {t1 - t0:.2f}s, native host helpers "
-        f"{time.monotonic() - t1:.2f}s")
+    log("build", "the five kernels and the native host helpers built")
 
     # -- 3. K1 vs plain -----------------------------------------------------
     from video_segment_tpu_torch.core import oversegmentation as ov
@@ -2327,7 +2041,8 @@ def main() -> int:
                  fin_margin=p.preseg_fin_margin, fin_eager=p.preseg_fin_eager,
                  fin_gated=p.preseg_fin_gated, pair_merge=p.preseg_pair_merge)
     from video_segment_tpu_torch.core import dense
-    frames, bg_masks = synthetic_clip(N_FRAMES, background=True)
+    frames, objects = synthetic_clip(N_FRAMES, truth=True)
+    bg_masks = objects == 0     # the pixels no shape covers
     rng = np.random.default_rng(7)
     k1_err = 0.0
     labels8 = None
@@ -2442,33 +2157,20 @@ def main() -> int:
 
     # -- 5. main path -------------------------------------------------------
     from video_segment_tpu_torch import api
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    tf.tile_felzenszwalb.launches = 0
-    te.tile_reduce_min.launches = 0
-    t0 = time.monotonic()
+    reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min)
     stream = api.segment_frames(iter(frames), W, H, use_flow=False,
                                 device="cuda")
-    out = list(stream)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    out, peak = run_stream(stream, dev)
     k1_launches = tf.tile_felzenszwalb.launches
     k2_launches = te.tile_reduce_min.launches
-    peak = torch.cuda.max_memory_allocated(dev)
 
     n_solves = expected_chunk_solves(N_FRAMES, 20)
     sets = check_stream(out, stream, N_FRAMES)
     if k1_launches != N_FRAMES or k2_launches != n_solves:
         raise AssertionError(f"launches K1 {k1_launches} (want {N_FRAMES}),"
                              f" K2 {k2_launches} (want {n_solves})")
-    stages = {k: round(v, 3) for k, v in stream.stage_seconds.items()}
-    rounds = [int(d[:, 1].sum()) for d in stream.solve_diag]
-    log("main", f"{N_FRAMES} frames {W}x{H} in {wall:.2f}s = "
-        f"{N_FRAMES / wall:.3f} fps; stage seconds {stages}; chunk solves "
-        f"{len(stream.solve_diag)} (merge rounds {rounds}); peak device "
-        f"memory {peak / 2**20:.1f} MiB; regions per level "
-        f"{[[len(lv.ids) for lv in sf.hierarchy] for sf in sets]}; "
-        f"launches K1 {k1_launches} K2 {k2_launches}")
+    log("main", path_summary(out, stream, peak, sets)
+        + f"; launches K1 {k1_launches} K2 {k2_launches}")
 
     # -- 6. card vs CPU -----------------------------------------------------
     fm, n_reg, _ = dense_card_vs_cpu(frames[:8],
@@ -2599,7 +2301,7 @@ def main() -> int:
     stream = api.segment_frames(
         iter(frames_p), W, H, use_flow=False, device="cuda",
         dense_options=api.DenseSegmentationOptions(preseg_mode="flood"))
-    out, wall, peak = run_stream(stream, dev)
+    out, peak = run_stream(stream, dev)
     counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
               tp.tile_presegment.launches, tt.tile_table_rounds.launches)
     sets = check_stream(out, stream, N_PATH_FRAMES)
@@ -2607,7 +2309,7 @@ def main() -> int:
         raise AssertionError(f"flood path launches K1/K2/K4/K3 {counts}, "
                              f"want (0, {n_solves_p}, {n_solves_p}, 0)")
     k4_launches = counts[2]
-    log("flood", path_summary(out, stream, wall, peak, sets)
+    log("flood", path_summary(out, stream, peak, sets)
         + f"; launches K4 {counts[2]} K2 {counts[1]}")
 
     # -- 10. supertile path -------------------------------------------------
@@ -2620,7 +2322,7 @@ def main() -> int:
                                 solver_params=st_solver, device="cuda"),
         region.RegionSegmentation(api.RegionSegmentationOptions(
             use_flow=False), W, H, device="cuda"))
-    out, wall, peak = run_stream(stream, dev)
+    out, peak = run_stream(stream, dev)
     counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
               tp.tile_presegment.launches, tt.tile_table_rounds.launches)
     sets = check_stream(out, stream, N_PATH_FRAMES)
@@ -2629,7 +2331,7 @@ def main() -> int:
         raise AssertionError(f"supertile path launches K1/K2/K4/K3 "
                              f"{counts}, want {want}")
     k3_launches = counts[3]
-    log("supertile", path_summary(out, stream, wall, peak, sets)
+    log("supertile", path_summary(out, stream, peak, sets)
         + f"; launches K1 {counts[0]} K2 {counts[1]} K3 {counts[3]}")
 
     # -- 11. new paths, card vs CPU -----------------------------------------
@@ -2637,10 +2339,9 @@ def main() -> int:
             ("flood", api.DenseSegmentationOptions(preseg_mode="flood"),
              None),
             ("supertile", api.DenseSegmentationOptions(), st_solver)):
-        t0 = time.monotonic()
         fm, n_reg, card = dense_card_vs_cpu(frames[:8], options, params)
         log("cpu", f"{name}: 8 frames, one flush chunk: boundary F "
-            f"{fm:.4f} (regions {n_reg}; {time.monotonic() - t0:.1f}s)")
+            f"{fm:.4f} (regions {n_reg})")
         if fm < 0.9:
             raise AssertionError(f"{name}: card vs CPU boundary F "
                                  f"{fm:.4f} < 0.9")
@@ -2665,7 +2366,7 @@ def main() -> int:
                    tvl1_ops.tvl1_scale)
     stream = api.segment_frames(iter(frames_p), W, H, use_flow=True,
                                 device="cuda")
-    out, wall, peak = run_stream(stream, dev)
+    out, peak = run_stream(stream, dev)
     counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
               tp.tile_presegment.launches, tt.tile_table_rounds.launches)
     k5_flow = tvl1_ops.tvl1_scale.launches
@@ -2680,11 +2381,10 @@ def main() -> int:
                              f"{want_k5}")
     if "flow" not in stream.stage_seconds:
         raise AssertionError("the flow path ran no flow engine")
-    log("flowpath", path_summary(out, stream, wall, peak, sets)
+    log("flowpath", path_summary(out, stream, peak, sets)
         + f"; launches K1 {counts[0]} K2 {counts[1]} K5 {k5_flow}")
 
     # -- 14. flow dense stage, card vs CPU ----------------------------------
-    t0 = time.monotonic()
     gray8 = torch.from_numpy(np.stack([fl.bgr_to_gray(f)
                                        for f in frames[:8]])).to(dev)
     flows8 = [None] + list(fl.tvl1_flow_batch(gray8[1:], gray8[:-1])
@@ -2693,15 +2393,12 @@ def main() -> int:
                                      api.DenseSegmentationOptions(),
                                      flows=flows8)
     log("cpu", f"flow: 8 frames with the same host flow arrays, one flush "
-        f"chunk: boundary F {fm:.4f} (regions {n_reg}; "
-        f"{time.monotonic() - t0:.1f}s)")
+        f"chunk: boundary F {fm:.4f} (regions {n_reg})")
     if fm < 0.9:
         raise AssertionError(f"flow: card vs CPU boundary F {fm:.4f} < 0.9")
 
     # -- 15. banded path (bench config 3's geometry) ------------------------
-    t0 = time.monotonic()
     frames_b = synthetic_clip(N_PATH_FRAMES, seed=1, h=BH, w=BW)
-    clip_s = time.monotonic() - t0
     reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min,
                    tp.tile_presegment, tt.tile_table_rounds,
                    tvl1_ops.tvl1_scale)
@@ -2711,7 +2408,7 @@ def main() -> int:
     if geometry != (2, 10):
         raise AssertionError(f"banded path: (bands, pad rows) {geometry}, "
                              "want (2, 10)")
-    out, wall, peak = run_stream(stream, dev)
+    out, peak = run_stream(stream, dev)
     counts = (tf.tile_felzenszwalb.launches, te.tile_reduce_min.launches,
               tp.tile_presegment.launches, tt.tile_table_rounds.launches)
     sets = check_stream(out, stream, N_PATH_FRAMES)
@@ -2728,18 +2425,16 @@ def main() -> int:
         raise AssertionError(f"banded path launches K5 {k5_banded}, want "
                              f"{want_k5}")
     banded_launches = counts
-    log("banded", path_summary(out, stream, wall, peak, sets)
+    log("banded", path_summary(out, stream, peak, sets)
         + f"; 2 bands of {(BH + 10) // 2} rows, 10 pad rows; launches K1 "
         f"{counts[0]} (one per padded frame) K2 {counts[1]} (one per band "
-        f"per chunk solve) K5 {k5_banded}; clip made in {clip_s:.1f}s")
+        f"per chunk solve) K5 {k5_banded}")
 
     # -- 16. banded dense stage, card vs CPU --------------------------------
-    t0 = time.monotonic()
     fm, n_reg, _ = dense_card_vs_cpu(frames_b[:5],
                                      api.DenseSegmentationOptions())
     log("cpu", f"banded: 5 frames {BW}x{BH}, one flush chunk (t_solve 5, 2 "
-        f"bands): boundary F {fm:.4f} (regions {n_reg}; "
-        f"{time.monotonic() - t0:.1f}s)")
+        f"bands): boundary F {fm:.4f} (regions {n_reg})")
     if fm < 0.9:
         raise AssertionError(f"banded: card vs CPU boundary F {fm:.4f} < 0.9")
 
@@ -2793,7 +2488,6 @@ def main() -> int:
             res += rs.process_frames(True, ds.process_frame(True))
         return res
 
-    t0 = time.monotonic()
     cut = 25
     with deterministic():
         straight = feed(*stages(), frames_p, 0, True)
@@ -2816,8 +2510,8 @@ def main() -> int:
                              "straight run")
     log("ckpt", f"{N_PATH_FRAMES} frames {W}x{H}, killed after frame {cut} "
         f"(checkpoint {ckpt_mib:.1f} MiB), restored into fresh stages on "
-        f"the card: RLE and hierarchies equal the straight run's bit for "
-        f"bit ({time.monotonic() - t0:.1f}s)")
+        "the card: RLE and hierarchies equal the straight run's bit for "
+        "bit")
 
     # -- 19-23. the command-line tools on the card -------------------------
     n_st = 3 * n_solves_p     # K3 launches: 3 gated levels a chunk solve
@@ -2830,8 +2524,9 @@ def main() -> int:
         missing = err.name
         log("cli", f"module {missing!r} is missing on this machine: phases "
             "19-23 (seg_tree, kill and resume through the CLI, the offline "
-            "tools), batch_segment's timings and 29-30 (bench configs 4 "
-            "and 5) are left out; the fused batch still runs from arrays")
+            "tools), batch_segment's runs, the seg_tree runs of 25 and 27 "
+            "and 29-30 (bench configs 4 and 5) are left out; the fused "
+            "batch still runs from arrays")
     frames_c = synthetic_clip(N_SHORT_FRAMES, seed=2)   # the second clip
     with tempfile.TemporaryDirectory() as tmp:
         if missing is None:
@@ -2843,18 +2538,14 @@ def main() -> int:
                                    with_cli=missing is None)
 
         # -- 25. the off-default knobs ---------------------------------------
-        t0 = time.monotonic()
         knob_counts = knobs_phase(tmp, frames_p, frames_b,
                                   with_cli=missing is None)
-        log("knobs", f"phase 25 took {time.monotonic() - t0:.1f}s")
 
         # -- 27. the v1 pixel solver -----------------------------------------
-        t0 = time.monotonic()
         v1_counts = v1_phase(tmp, frames_p, with_cli=missing is None)
-        log("v1", f"phase 27 took {time.monotonic() - t0:.1f}s")
 
     # -- 28. the device mesh -------------------------------------------------
-    mesh_counts = mesh_phase(frames_p)["mesh"]
+    mesh_counts = mesh_phase(frames_p)
 
     # -- 29-30. bench configs 4 and 5 ----------------------------------------
     config4 = config5 = None

@@ -11,8 +11,8 @@ hierarchies, per-set level assignments and overlap assignments
 pinned (F4) and the port's Lab conversion is replaced by cv2's, as in
 `tests/test_torch_region.py`.  The seam property over every region of
 the next set is `chip_smoke.seam_check`, the check that `chip_smoke.py`
-phase 31 runs on the card; `test_seams_card_vs_cpu_on_card` runs that
-phase's 136x240 stream on both devices.
+phases 29 and 31 run on the card; `test_seams_card_vs_cpu_on_card` holds
+the card to the CPU across seams on a 136x240 stream.
 """
 
 import collections
@@ -24,10 +24,12 @@ import pytest
 import torch
 
 import chip_smoke
+from bench_port import generator
 from video_segment_tpu.core import dense as jdense
 from video_segment_tpu.core import region as jregion
 from video_segment_tpu.core.options import (DenseSegmentationOptions,
                                             RegionSegmentationOptions)
+from video_segment_tpu_torch import api
 from video_segment_tpu_torch.core import dense as tdense
 from video_segment_tpu_torch.core import region as tregion
 from video_segment_tpu_torch.core.options import options_from_jax
@@ -199,21 +201,53 @@ def test_default_set_geometry_matches_jax(monkeypatch, use_flow):
     assert all(s["levels"] >= 1 and s["share0"] > 0 for s in seams)
 
 
+def seam_card_vs_cpu(frames) -> dict:
+    """`segment_frames` (flow off, 4-frame chunks) over `frames` on the
+    card and on the CPU, each under `chip_smoke.set_records`: the seam
+    property on both devices (`chip_smoke.seam_check`) and level-0
+    boundary F of the emitted frames, card against CPU (float order
+    differs on the card, F1 and F3: the hierarchies are not compared for
+    equality).  Raises where a check fails."""
+    h, w = frames[0].shape[:2]
+    options = api.DenseSegmentationOptions(chunk_size=4)
+    res = {}
+    for name in ("cuda", "cpu"):
+        with chip_smoke.set_records() as sets:
+            stream = api.segment_frames(iter(frames), w, h, use_flow=False,
+                                        dense_options=options, device=name)
+            out = list(stream)
+        if [sf.frame_index for sf in out] != list(range(len(frames))):
+            raise AssertionError(f"{name}: frames missing or out of order")
+        res[name] = dict(img=chip_smoke.rasterize(out), sets=sets,
+                         seams=chip_smoke.seam_check(sets),
+                         solves=len(stream.solve_diag))
+    if res["cuda"]["solves"] != res["cpu"]["solves"] or \
+            len(res["cuda"]["sets"]) != len(res["cpu"]["sets"]):
+        raise AssertionError("card and CPU ran different chunk sets")
+    if len(res["cuda"]["seams"]) < 2:
+        raise AssertionError(f"{len(res['cuda']['seams'])} seams, want 2 or "
+                             f"more")
+    res["f"] = chip_smoke.boundary_f(res["cuda"]["img"], res["cpu"]["img"])
+    if res["f"] < 0.9:
+        raise AssertionError(f"seams card vs CPU: level-0 boundary F "
+                             f"{res['f']:.4f} < 0.9")
+    return res
+
+
 @pytest.mark.cuda
 def test_seams_card_vs_cpu_on_card():
-    """`chip_smoke.py` phase 31's comparison across seams: the 40-frame
-    136x240 synthetic clip in 4-frame chunks (14 chunk solves, 3 seams)
-    through `segment_frames` (flow off) on the card and on the CPU; the
-    seam property holds on both devices and the emitted frames agree at
-    level-0 boundary F >= 0.9 (`chip_smoke.seam_card_vs_cpu` raises
-    otherwise)."""
+    """Across seams on both devices: the 40-frame 136x240 synthetic clip
+    in 4-frame chunks (14 chunk solves, 3 seams) through `segment_frames`
+    (flow off) on the card and on the CPU; the seam property holds on both
+    devices and the emitted frames agree at level-0 boundary F >= 0.9
+    (`seam_card_vs_cpu` raises otherwise)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 1)
     try:
-        res = chip_smoke.seam_card_vs_cpu(
-            chip_smoke.synthetic_clip(40, seed=3, h=136, w=240))
+        res = seam_card_vs_cpu(
+            generator.synthetic_clip(40, seed=3, h=136, w=240))
     finally:
         torch.set_num_threads(threads)
     assert res["f"] >= 0.9

@@ -6,7 +6,7 @@ in labels and finalize levels, and match the cell-positioned stats to
 1e-5 relative (the mirror and the JAX kernel sum colours in float32, the
 port in float64).  The CUDA kernel is held to the plain version bit for
 bit on a card (`-m cuda`), on ragged shapes, T > 1, a flat frame and
-presmoothed frames of chip_smoke.py's clip, under every variant; its gate
+presmoothed frames of the benchmark's clip, under every variant; its gate
 keys are checked here.
 """
 
@@ -124,17 +124,12 @@ def test_gate_key_splits_distances_exactly(metric, threshold):
 
 
 def _clip_frames(n):
-    """Presmoothed frames of chip_smoke.py's synthetic 272x480 clip: the
+    """Presmoothed frames of the benchmark's synthetic 272x480 clip
+    (`bench_port.generator`, the clip of chip_smoke.py's main path): the
     inputs the main path feeds K1."""
-    import importlib.util
-    import os
+    from bench_port import generator
     from video_segment_tpu_torch.core import dense
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    frames = smoke.synthetic_clip(n)
+    frames = generator.synthetic_clip(n)
     return torch.stack([dense._preprocess_u8(torch.as_tensor(f).cuda(),
                                              "bilateral") for f in frames])
 

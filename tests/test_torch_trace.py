@@ -7,6 +7,7 @@ engine's, the encoder's and the stages' spans and counters in one
 trace."""
 
 import contextlib
+import itertools
 import sys
 import threading
 import time
@@ -159,7 +160,24 @@ def _profiled(frames):
     return stream, ann, t0, t1
 
 
-def test_spans_are_profiler_ranges_on_its_clock():
+def test_spans_are_profiler_ranges_on_its_clock(monkeypatch):
+    """Every span is a user range of its name on its thread, inside the
+    run and inside its parent's range.  Instance by instance, the span's
+    seconds lie inside its range's, and the range's inside the seconds of
+    two clock reads taken around the span's call.  Each side is a
+    duration on one clock, so a thread that the host preempts between a
+    clock read and the profiler's stamp moves neither bound."""
+    calls = []
+    real = Trace.span
+
+    @contextlib.contextmanager
+    def recording(self, name, start=None):
+        before = time.monotonic()
+        with real(self, name, start) as rec:
+            yield rec
+        calls.append((name, before, rec.start, rec.end, time.monotonic()))
+
+    monkeypatch.setattr(Trace, "span", recording)
     stream, ann, t0, t1 = _profiled(clip(n=9))
     secs = stream.stage_seconds
     names = {e.name() for e in ann}
@@ -174,8 +192,13 @@ def test_spans_are_profiler_ranges_on_its_clock():
             assert any(n == parent and t == tid and ps <= s and e <= pe
                        for n, t, ps, pe in ranges), name
     for name in names:
-        got = sum(e - s for n, _, s, e in ranges if n == name) * 1e-9
-        assert abs(got - secs[name]) <= max(0.05 * secs[name], 2e-3), name
+        mine = sorted((s, e) for n, _, s, e in ranges if n == name)
+        theirs = sorted(c[1:] for c in calls if c[0] == name)
+        assert len(mine) == len(theirs), name
+        for (s, e), (before, start, end, after) in zip(mine, theirs):
+            assert end - start <= (e - s) * 1e-9 <= after - before, name
+        assert secs[name] == pytest.approx(
+            sum(end - start for _, start, end, _ in theirs)), name
 
 
 def test_no_range_without_a_profiler(monkeypatch):
@@ -216,10 +239,11 @@ def test_trace_is_safe_across_threads():
     assert trace.seconds["s"] > 0.0
 
 
-def test_span_from_an_earlier_start():
+def test_span_from_an_earlier_start(monkeypatch):
     trace = Trace()
+    # A stepped clock: 21 ms pass between the start and the block's end.
+    monkeypatch.setattr(trace, "now", itertools.count(100.0, 0.021).__next__)
     start = trace.now()
-    time.sleep(0.02)
     with trace.span("late", start=start) as rec:
         pass
     assert rec.start == start and rec.end >= start + 0.02

@@ -9,7 +9,12 @@ kernel for Hopper (``csrc/``):
 - ``ops.tile_felz.tile_felzenszwalb``: tile-local Felzenszwalb pre-solve;
 - ``ops.tile_extract.tile_reduce_min``: per-tile edge-key minima;
 - ``ops.tile_table.tile_table_rounds``: supertile table merge rounds;
-- ``ops.tile_preseg.tile_presegment``: tile flood pre-segmentation.
+- ``ops.tile_preseg.tile_presegment``: tile flood pre-segmentation;
+
+and one kernel that the JAX package runs as XLA ops:
+
+- ``ops.tvl1.tvl1_scale``: one pyramid scale of TV-L1 optical flow (its
+  warps and primal-dual iterations).
 
 ``parallel`` holds the device mesh (clips on "data", solver row bands on
 "space") and the multi-device dry run.

@@ -333,9 +333,10 @@ def _upload(dev, hist, flow_hist, flow_cnt, sizes, win_hist,
     scatter, no second table-sized buffer on the card.  Bench config 4's
     full set (729,214 regions, a (1048576, 4000) table of 15.6 GiB) took
     3.764 s to upload from pageable memory, 4.46 GB/s, against 108.2 s in
-    the region stage over the 140-frame stream (`chip_smoke.py` phase 29,
-    NVIDIA H100 80GB HBM3, 700.00 W); finding the table's nonzeros for
-    COO is itself a host pass over all 16.8 GB."""
+    the region stage over the 140-frame stream (one run of that stream,
+    NVIDIA H100 80GB HBM3, 700.00 W; CHANGES.md keeps it, and
+    `chip_smoke.py` phase 29 still runs the stream as a check); finding
+    the table's nonzeros for COO is itself a host pass over all 16.8 GB."""
     def put(x):
         if isinstance(x, torch.Tensor):   # e.g. gathered from a mesh
             return x.to(dev, torch.float32)

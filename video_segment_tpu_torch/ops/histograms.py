@@ -77,9 +77,9 @@ def xla_order_sum(x: torch.Tensor) -> torch.Tensor:
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last dim: `xla_order_sum` on the CPU.  That order costs
     about 70 launches a sum, which on the card made the region stage 1.7x
-    slower (scripts/ordered_sum_cost.py), so a CUDA tensor takes one
-    torch.sum (its float order differs from the CPU's in the last ulp, like
-    the solver's float atomics)."""
+    slower (the main path timed both ways on one H100), so a CUDA tensor
+    takes one torch.sum (its float order differs from the CPU's in the
+    last ulp, like the solver's float atomics)."""
     if x.device.type != "cpu":
         return torch.sum(x, dim=-1)
     return xla_order_sum(x)
@@ -314,7 +314,7 @@ def combined_distance(color_d, flow_d, size_a, size_b, inv_median_size,
     folded into one float32 factor k = penalizer * float32(1 / ln 2), and
     1 + k ln x as one fused multiply-add.  The same on every device: on the
     card its extra elementwise launches did not lengthen the main path's
-    region stage (scripts/size_penalty_cost.py)."""
+    region stage (timed against `torch.log2`; CHANGES.md keeps the run)."""
     prod = 1.0 - color_d
     if use_flow:
         q = _fma(-prod, 1.0 - flow_d, 1.0)

@@ -14,9 +14,11 @@ A span takes two host clock reads.  While a Kineto profiler records
 (`torch.autograd._profiler_enabled()`), it is also a
 `torch.profiler.record_function` range of the same name, so it lands in
 the profiler's trace on the clock of the card's activity; otherwise no
-range is opened.  A span adds no device sync: where the work it times
-runs on the device, its seconds include that work only if the block ends
-in a blocking copy or a sync of its own.  Names are dotted by nesting:
+range is opened.  The range opens before the span's first clock read and
+closes after its second, so it holds the span's seconds.  A span adds no
+device sync: where the work it times runs on the device, its seconds
+include that work only if the block ends in a blocking copy or a sync of
+its own.  Names are dotted by nesting:
 `region.upload` runs inside `region`.
 """
 
@@ -46,11 +48,11 @@ class Trace:
         begins in one call or thread and ends in another); the profiler's
         range still covers the block alone.  Yields a record whose `end`
         is set when the block exits."""
-        rec = _Span(self.now() if start is None else start)
         rf = None
         if torch.autograd._profiler_enabled():
             rf = torch.profiler.record_function(name)
             rf.__enter__()
+        rec = _Span(self.now() if start is None else start)
         try:
             yield rec
         finally:
