@@ -5,13 +5,13 @@
 Each phase checks something and prints what it found; any failure exits
 non-zero.  Whole paths are timed by the benchmark (`bench_port/`: fps,
 latency, spans, peak memory of each cell), not here: this script times
-kernels alone (phases 3, 4, 7, 8 and 12, and the kernel lines of 29 and
-30) and phase 17's chunk solve in 2 bands against 1.  Every line starts
+kernels alone (phases 3, 4, 7, 8, 12 and 32, and the kernel lines of 29
+and 30) and phase 17's chunk solve in 2 bands against 1.  Every line starts
 with the seconds since the start, for the script's own time budget.
 
 Phases:
  1. environment: torch / CUDA versions, card name, power limit;
- 2. build: the five hand-written kernels from video_segment_tpu_torch/csrc
+ 2. build: the six hand-written kernels from video_segment_tpu_torch/csrc
     (one nvcc each, sm_90a, all started together) and the native host
     helpers (g++); a resource line per kernel (registers, spills, shared
     memory, CTAs per SM from the occupancy API, waves at the main path's
@@ -27,8 +27,8 @@ Phases:
  5. the main path: segment_frames(use_flow=False, device="cuda") over a
     seeded 60-frame 272x480 synthetic clip (bench config 2's geometry):
     frames in order, every pixel labelled, ascending ids, parent links
-    inside the next level, the protocol's chunk solves, K1 once a frame
-    and K2 once a chunk solve;
+    inside the next level, the protocol's chunk solves, K1 once a frame,
+    K2 once a chunk solve and K6 once a frame;
  6. the dense stage on the card against the same port on the CPU
     (level-0 boundary F);
  7. K4 tile_presegment equals its plain version on a (21,272,480) chunk
@@ -162,7 +162,13 @@ Phases:
     one at level l in the next, at every level) and level-0 ids shared
     across the seam; the peak memory and where it was reached.  The same
     API across seams on the card against the CPU is the cuda test
-    tests/test_torch_region_continuity.py::test_seams_card_vs_cpu_on_card.
+    tests/test_torch_region_continuity.py::test_seams_card_vs_cpu_on_card;
+32. (run after phase 4) K6, the bilateral presmoothing filter
+    (csrc/bilateral.cu), equals the eager body (bilateral_filter_plain on
+    the same CUDA tensors) bit for bit on a textured 8-frame 272x480 batch
+    and a 480x854 frame, one launch a frame; its time a frame at both
+    sizes (launches back to back) against its bound, the eager body's
+    time, and its resource line.
 Phases 19-23, 24's batch_segment runs, 25's and 27's seg_tree runs, 29
 and 30 decode or resize with cv2 and write with protobuf; where either is
 missing one line names it and the phases left out.
@@ -198,7 +204,8 @@ N_SHORT_FRAMES = 21  # seg_tree at 480x854, the deterministic pair: 2 solves
 C4_W, C4_H = 720, 1280    # bench config 4 (bench.py's scale_to)
 C5_W, C5_H = 1080, 1920   # bench config 5
 N_LONG_FRAMES = 140       # 8 chunk solves: a full chunk set, then a seam
-KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table", "tvl1")
+KERNELS = ("tile_felz", "tile_extract", "tile_preseg", "tile_table", "tvl1",
+           "bilateral")
 _START = time.monotonic()
 
 
@@ -1670,6 +1677,67 @@ def steady_phase() -> dict:
     return dict(counts=counts)
 
 
+def bilateral_bound(h: int, w: int, radius: int = 4) -> tuple:
+    """K6's bound on one (h, w) frame: 12 B read and 12 B written a pixel;
+    a tap's 11 emulated multiply-adds (2 for the colour distance, 9 in
+    the exp) and, from the second tap on, 3 for the value sums, each a
+    float64 multiply and add; 16 float32 operations a tap and 7 a pixel
+    (the clamp and the three divisions, the three products of the second
+    tap).  Returns (ms, what bounds it)."""
+    from video_segment_tpu_torch.ops import bilateral as bl
+    taps, px = bl.taps(radius), h * w
+    return bound(24 * px, {"f64": px * 2 * (11 * taps + 3 * (taps - 1)),
+                           "f32": px * (16 * taps + 7)})
+
+
+def bilateral_phase(frames=None) -> dict:
+    """Phase 32: K6 against the eager body (see the module docstring).
+    Draws an 8-frame clip when not given one.  Returns K6's numbers."""
+    from video_segment_tpu_torch.ops import bilateral as bl
+    from video_segment_tpu_torch.ops import filters
+    dev = torch.device("cuda", 0)
+    if frames is None:
+        frames = synthetic_clip(8)
+
+    def image(fr):
+        return torch.as_tensor(fr, device=dev).to(torch.float32) * (1 / 255)
+
+    cases = {f"{H}x{W}": [image(fr) for fr in frames[:8]],
+             f"{BH}x{BW}": [image(synthetic_clip(1, h=BH, w=BW)[0])]}
+    out = {}
+    for name, imgs in cases.items():
+        n0 = bl.bilateral.launches
+        got = [filters.bilateral_filter(img) for img in imgs]
+        launches = bl.bilateral.launches - n0
+        want = [filters.bilateral_filter_plain(img) for img in imgs]
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        if launches != len(imgs) or not all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(got, want)):
+            raise AssertionError(f"K6 at {name}: {launches} launches for "
+                                 f"{len(imgs)} frames, max |d| {err:.3g} "
+                                 f"against the eager body")
+        img = imgs[-1]
+        ms = device_ms(lambda: filters.bilateral_filter(img), 200)
+        plain_ms = cuda_ms(lambda: filters.bilateral_filter_plain(img), 5)
+        bound_ms, by = bilateral_bound(*img.shape[:2])
+        out[name] = dict(frames=len(imgs), max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        log("k6", f"{name}: {len(imgs)} frame(s) equal the eager body bit "
+            f"for bit, one launch a frame; kernel {ms * 1e3:.2f} us a frame "
+            f"(launches back to back), eager body {plain_ms:.3f} ms; bound "
+            f"{bound_ms * 1e3:.2f} us ({by}), {100 * bound_ms / ms:.1f}% of "
+            f"it")
+    log("build", resource_line("bilateral", -(-W // bl.TILE_W)
+                               * -(-H // bl.TILE_H)))
+    main = out[f"{H}x{W}"]
+    return dict(max_abs_err=max(v["max_abs_err"] for v in out.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                banded_frame=out[f"{BH}x{BW}"])
+
+
 def tvl1_bound(calls) -> tuple:
     """K5's bound on the scales `calls` (each `tvl1_scale`'s arguments):
     60 B a pixel an iteration (u1, u2, p11, p12, p21, p22, i1wx, i1wy and
@@ -2030,7 +2098,7 @@ def main() -> int:
     from video_segment_tpu_torch.core import region
     if not region.native.available():
         raise RuntimeError("native host helpers (g++) failed to build")
-    log("build", "the five kernels and the native host helpers built")
+    log("build", "the six kernels and the native host helpers built")
 
     # -- 3. K1 vs plain -----------------------------------------------------
     from video_segment_tpu_torch.core import oversegmentation as ov
@@ -2155,22 +2223,32 @@ def main() -> int:
         f"(0, 2^-20), {n_zero} exact zeros, of "
         f"{N_FRAMES * H * W * 3}")
 
+    # -- 32. K6 vs plain ----------------------------------------------------
+    k6 = bilateral_phase(frames)
+
     # -- 5. main path -------------------------------------------------------
     from video_segment_tpu_torch import api
-    reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min)
+    from video_segment_tpu_torch.ops import bilateral as bl
+    reset_launches(tf.tile_felzenszwalb, te.tile_reduce_min, bl.bilateral)
     stream = api.segment_frames(iter(frames), W, H, use_flow=False,
                                 device="cuda")
     out, peak = run_stream(stream, dev)
     k1_launches = tf.tile_felzenszwalb.launches
     k2_launches = te.tile_reduce_min.launches
+    k6_launches = bl.bilateral.launches
 
     n_solves = expected_chunk_solves(N_FRAMES, 20)
     sets = check_stream(out, stream, N_FRAMES)
-    if k1_launches != N_FRAMES or k2_launches != n_solves:
+    if (k1_launches != N_FRAMES or k2_launches != n_solves
+            or k6_launches != N_FRAMES
+            or stream.counters["ingest.bilateral_kernel"] != N_FRAMES):
         raise AssertionError(f"launches K1 {k1_launches} (want {N_FRAMES}),"
-                             f" K2 {k2_launches} (want {n_solves})")
+                             f" K2 {k2_launches} (want {n_solves}), K6 "
+                             f"{k6_launches} and ingest.bilateral_kernel "
+                             f"{stream.counters['ingest.bilateral_kernel']}"
+                             f" (want {N_FRAMES})")
     log("main", path_summary(out, stream, peak, sets)
-        + f"; launches K1 {k1_launches} K2 {k2_launches}")
+        + f"; launches K1 {k1_launches} K2 {k2_launches} K6 {k6_launches}")
 
     # -- 6. card vs CPU -----------------------------------------------------
     fm, n_reg, _ = dense_card_vs_cpu(frames[:8],
@@ -2646,6 +2724,11 @@ def main() -> int:
              library_ms=None, launches_flow=k5_flow,
              launches_banded=k5_banded,
              launches_seg_tree=cli_counts and cli_counts[4]),
+        dict(name="bilateral", route="cuda",
+             source="video_segment_tpu_torch/csrc/bilateral.cu",
+             replaces="eager torch ops (ops/filters.py:"
+                      "bilateral_filter_plain)",
+             launches=k6_launches, **k6, library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

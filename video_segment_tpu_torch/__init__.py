@@ -11,10 +11,12 @@ kernel for Hopper (``csrc/``):
 - ``ops.tile_table.tile_table_rounds``: supertile table merge rounds;
 - ``ops.tile_preseg.tile_presegment``: tile flood pre-segmentation;
 
-and one kernel that the JAX package runs as XLA ops:
+and two kernels for what the JAX package runs as XLA ops:
 
 - ``ops.tvl1.tvl1_scale``: one pyramid scale of TV-L1 optical flow (its
-  warps and primal-dual iterations).
+  warps and primal-dual iterations);
+- ``ops.bilateral.bilateral``: the bilateral presmoothing filter of one
+  frame.
 
 ``parallel`` holds the device mesh (clips on "data", solver row bands on
 "space") and the multi-device dry run.

@@ -40,7 +40,8 @@ import torch
 from video_segment_tpu_torch import device as devmod
 from video_segment_tpu_torch.core import oversegmentation as ov
 from video_segment_tpu_torch.core.options import DenseSegmentationOptions
-from video_segment_tpu_torch.ops import filters, rle, tile_felz, tile_preseg
+from video_segment_tpu_torch.ops import (bilateral, filters, rle, tile_felz,
+                                         tile_preseg)
 from video_segment_tpu_torch.runtime.trace import Trace
 
 
@@ -169,6 +170,9 @@ class DenseSegmentation:
     so each stage owns its device time.  They are spans of `trace`
     (`runtime/trace.py`; a new one unless given), which also times the
     host tail's parts ("host_tail.compact", ".connect", ".ids", ".rle").
+    Its counter "ingest.bilateral_kernel" counts the frames that K6
+    smoothed at ingest (read from the kernel's launches on the ingesting
+    thread: every frame of a bilateral stage on a card, none on the CPU).
 
     `device` defaults to "cuda" (raising without CUDA).  With
     `mesh=parallel.mesh.Mesh`, the chunk solves run their row bands over
@@ -378,7 +382,10 @@ class DenseSegmentation:
 
     def _ingest(self, frame_bgr_u8: np.ndarray, flow) -> None:
         with self.trace.span("ingest_preseg"):
+            n0 = bilateral.thread_launches()
             img = self.preprocess(frame_bgr_u8)
+            self.trace.count("ingest.bilateral_kernel",
+                             bilateral.thread_launches() - n0)
             self._buffer.append(img)
             if self._felz_at_ingest():
                 self._preseg_buffer.append(self._preseg_frame(img))

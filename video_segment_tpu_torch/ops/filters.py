@@ -9,15 +9,20 @@ Sums run in the JAX version's left-to-right order, and multiply-adds round
 as XLA's CPU backend contracts them (fused multiply-adds, emulated in
 float64); the bilateral filter's exp is XLA's own polynomial
 (`ops/histograms.xla_exp`).  Both filters equal the JAX versions bit for
-bit on the CPU.
+bit on the CPU.  On a CUDA tensor the bilateral filter is one launch of
+K6 (`ops/bilateral.py`, `csrc/bilateral.cu`), bit for bit the eager body
+(`bilateral_filter_plain`) on the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from video_segment_tpu_torch.ops import bilateral as bilateral_ops
 from video_segment_tpu_torch.ops.histograms import _fma, xla_exp
 
 
@@ -69,6 +74,30 @@ _TAP_BLOCK = 7   # taps whose weights are computed in one batch of launches
 
 def bilateral_filter(img: torch.Tensor, sigma_space: float = 3.0,
                      sigma_color: float = 0.25) -> torch.Tensor:
+    """Bilateral filter of an (H,W,C) float image: on a CUDA tensor one
+    launch of K6, which takes a contiguous (H,W,3) float32 image or raises
+    (nothing falls back); on any other device `bilateral_filter_plain`."""
+    if img.device.type == "cuda":
+        return bilateral_ops.bilateral(
+            img, _space_weights(sigma_space, img.device),
+            int(sigma_space * 1.5), -0.5 / (sigma_color * sigma_color))
+    return bilateral_filter_plain(img, sigma_space, sigma_color)
+
+
+@functools.lru_cache(maxsize=None)
+def _space_weights(sigma_space: float, device: torch.device) -> torch.Tensor:
+    """The taps' spatial weights as `bilateral_filter_plain` computes them
+    (in `_circular_offsets` order), on `device`, once per sigma_space."""
+    radius = int(sigma_space * 1.5)
+    space_coeff = -0.5 / (sigma_space * sigma_space)
+    return torch.tensor(
+        [np.exp(space_coeff * r2).astype(np.float32)
+         for *_, r2 in _circular_offsets(radius)],
+        dtype=torch.float32, device=device)
+
+
+def bilateral_filter_plain(img: torch.Tensor, sigma_space: float = 3.0,
+                           sigma_color: float = 0.25) -> torch.Tensor:
     """Bilateral filter of an (H,W,C) float image (full circular window),
     in the rounding of the JAX package's compiled filter: the squared
     colour distance as fma(d2, d2, fma(d0, d0, d1 * d1)) over the channel
